@@ -1,12 +1,12 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--profile-rungs]
 
 Phases, each fatal on failure (nothing is caught):
 
 1. print the card's name and power limit (``nvidia-smi``);
-2. build the three CUDA kernels from ``src/repro_torch/kernels/csrc/``, one
+2. build the five CUDA kernels from ``src/repro_torch/kernels/csrc/``, one
    ``nvcc`` each, all started together, and print their registers, spills
    and shared memory;
 3. hold each kernel against its plain PyTorch version at the full-width
@@ -16,7 +16,9 @@ Phases, each fatal on failure (nothing is caught):
    before it, as each layer's weights and KV pages are cold on the path.
    That write also keeps the device busy while the host enqueues the
    timed call, so the CUDA events time the device, not the host's launch
-   path;
+   path. ``gemm_wq`` runs int8, fp8 and int4 codes with quant blocks of 32
+   (and int8 per channel once), the quantized ``paged_attention`` int8 and
+   fp8 pools;
 4. serve 8 requests of full-width qwen3-0.6b (28 layers, random bf16
    weights from a seeded ``torch.Generator``) through ``ServeEngine``:
    prompts of 40-200 tokens, 16 new tokens each, 4 slots, pages of 16,
@@ -27,13 +29,26 @@ Phases, each fatal on failure (nothing is caught):
    run, and every served token must hold to forward's logits by the margin
    rule below;
 6. profile one more serving run (device time by kernel, device busy share);
-7. print the ``kernels`` JSON line, then the result line.
+7. serve the same trace on the two quantized rungs, int8 weights with int8
+   KV and int4 weights with fp8 KV (quant blocks of 32), counted the same
+   way: only ``gemm_wq`` and ``paged_attention_quant`` may have run, 84 and
+   28 per decode step. Each served token must hold, by the same margin
+   rule, to the rung's own model-level path run for its request alone
+   (``extend_step`` in the same chunks, then ``decode_step``). With
+   ``--profile-rungs`` each rung is also profiled as in phase 6 (off by
+   default: the profiled runs would take most of the script's time).
+   Agreement with the bf16 model (its argmax on the rung's tokens, and the
+   cosine similarity of the two models' logits) is reported, not gated:
+   random weights have near-tied logits;
+8. print the ``kernels`` JSON line, then the result line.
 
 Exits non-zero, printing no result, when ``torch.cuda.is_available()`` is
 false or when the repository's ``src/repro_torch`` is not beside it.
 """
 from __future__ import annotations
 
+import argparse
+import gc
 import json
 import subprocess
 import sys
@@ -60,6 +75,10 @@ def require(cond: bool, msg: str) -> None:
 
 
 def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--profile-rungs", action="store_true",
+                    help="also profile a serving run of each quantized rung")
+    profile_rungs = ap.parse_args().profile_rungs
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -73,8 +92,12 @@ def main() -> int:
     from repro_torch.kernels import build, ops, ref
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import gemm as gm
+    from repro_torch.kernels import gemm_wq as wq
     from repro_torch.kernels import paged_attention as pa
-    from repro_torch.models import forward, init, logits_fn
+    from repro_torch.models import (decode_step, extend_step, forward, init,
+                                    logits_fn)
+    from repro_torch.models.cache import init_cache
+    from repro_torch.quant import quantize_kv, quantize_params, quantize_weight
     from repro_torch.serve import Request, ServeEngine
 
     card = subprocess.run(
@@ -131,7 +154,7 @@ def main() -> int:
         return ((t_bytes, "bytes") if t_bytes >= t_ops
                 else (t_ops, "operations"))
 
-    entries = {}
+    entries, yardstick = {}, {}
     cfg = get_arch("qwen3-0.6b")
     d, f_ = cfg.d_model, cfg.d_ff
     for M in (4, 64):        # live slots at decode, chunk length at prefill
@@ -143,17 +166,54 @@ def main() -> int:
                           ref.gemm_ref(x, w, act=act))
             ms = cold_ms(lambda: gm.gemm_cuda(x, w, act=act))
             plain_ms = cold_ms(lambda: ref.gemm_ref(x, w, act=act))
-            lib_ms = (cold_ms(lambda: torch.matmul(x, w)) if act is None
-                      else None)
+            mm_ms = cold_ms(lambda: torch.matmul(x, w))
+            lib_ms = mm_ms if act is None else None
             b_ms, b_by = bound(2 * (M * K + K * N + M * N), 2 * M * N * K)
             print(f"[kernel] gemm {proj} M={M} {K}->{N} act={act}: "
                   f"max_abs_err={err:.3e} ms={ms:.4f} plain_ms={plain_ms:.4f}"
                   f" library_ms={lib_ms} bound_ms={b_ms:.4f} ({b_by})")
+            yardstick[(M, proj)] = (ms, mm_ms)
             if M == 4 and proj == "up":
                 entries["gemm"] = dict(
                     shape=f"M={M} K={K} N={N} act=None bf16", ms=ms,
                     plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
                     bound_by=b_by, max_abs_err=err)
+
+    # gemm_wq at the same shapes: int8 / fp8 / int4 codes, quant blocks of
+    # 32 as the served rungs use them, and int8 per channel once. No single
+    # PyTorch call computes a per-block weight-only product (library_ms
+    # null); the bf16 gemm kernel and torch.matmul at the shape are printed
+    # beside it as yardsticks.
+    for M in (4, 64):
+        for proj, K, N, act in (("gate", d, f_, "silu"), ("up", d, f_, None),
+                                ("down", f_, d, None)):
+            x, w = bf16(M, K), bf16(K, N, scale=K ** -0.5)
+            g_ms, mm_ms = yardstick[(M, proj)]
+            print(f"[kernel] yardsticks {proj} M={M} {K}->{N}: bf16 gemm "
+                  f"kernel ms={g_ms:.4f}, torch.matmul ms={mm_ms:.4f}")
+            variants = [("int8", 32), ("fp8", 32), ("int4", 32)]
+            if M == 4 and proj == "up":
+                variants.append(("int8", 0))
+            for dt, qb in variants:
+                qw, sc = quantize_weight(w, dt, block=qb)
+                name = f"gemm_wq {dt} qb={qb or 'channel'} {proj} M={M}"
+                err = compare(name, wq.gemm_wq_cuda(x, qw, sc, act=act),
+                              ref.gemm_wq_ref(x, qw, sc, act=act))
+                ms = cold_ms(lambda: wq.gemm_wq_cuda(x, qw, sc, act=act))
+                plain_ms = cold_ms(lambda: ref.gemm_wq_ref(x, qw, sc,
+                                                           act=act))
+                b_ms, b_by = bound(2 * M * K + qw.numel() * qw.element_size()
+                                   + 2 * sc.numel() + 2 * M * N,
+                                   2 * M * N * K)
+                print(f"[kernel] {name} {K}->{N} act={act}: "
+                      f"max_abs_err={err:.3e} ms={ms:.4f} "
+                      f"plain_ms={plain_ms:.4f} library_ms=None "
+                      f"bound_ms={b_ms:.4f} ({b_by})")
+                if M == 4 and proj == "up" and (dt, qb) == ("int8", 32):
+                    entries["gemm_wq"] = dict(
+                        shape=f"M={M} K={K} N={N} act=None int8 qb=32",
+                        ms=ms, plain_ms=plain_ms, library_ms=None,
+                        bound_ms=b_ms, bound_by=b_by, max_abs_err=err)
 
     B, Kh, G, D, page, P = 4, cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads, \
         cfg.resolved_head_dim, 16, 16
@@ -181,6 +241,26 @@ def main() -> int:
         shape=f"B={B} K={Kh} G={G} D={D} page={page} lengths={lengths_l} "
               "bf16", ms=ms, plain_ms=plain_ms, library_ms=None,
         bound_ms=b_ms, bound_by=b_by, max_abs_err=err)
+    for dt in ("int8", "fp8"):     # the same pools, quantized per row
+        (kq, ks), (vq, vs) = quantize_kv(kp, dt), quantize_kv(vp, dt)
+        args = (q, kq, vq, tables, lengths, ks, vs)
+        err = compare(f"paged_attention {dt}",
+                      pa.paged_attention_cuda(*args),
+                      ref.paged_attention_ref(*args))
+        ms = cold_ms(lambda: pa.paged_attention_cuda(*args))
+        plain_ms = cold_ms(lambda: ref.paged_attention_ref(*args))
+        b_ms, b_by = bound(2 * 2 * q.numel() + 2 * rows * Kh * (D + 2)
+                           + 4 * (n_pages + B), 4 * rows * Kh * G * D)
+        print(f"[kernel] paged_attention_quant {dt} B={B} K={Kh} G={G} "
+              f"D={D} page={page} lengths={lengths_l}: max_abs_err={err:.3e}"
+              f" ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms=None "
+              f"bound_ms={b_ms:.4f} ({b_by})")
+        if dt == "int8":
+            entries["paged_attention_quant"] = dict(
+                shape=f"B={B} K={Kh} G={G} D={D} page={page} "
+                      f"lengths={lengths_l} int8", ms=ms, plain_ms=plain_ms,
+                library_ms=None, bound_ms=b_ms, bound_by=b_by,
+                max_abs_err=err)
 
     BH, BK = cfg.n_heads, cfg.n_kv_heads
     for S in (64, 215):
@@ -220,41 +300,78 @@ def main() -> int:
                     max_new_tokens=16) for i in range(8)]
     engine_kw = dict(max_slots=4, max_len=256, page_size=16,
                      prefill_chunk=64, device="cuda")
-    ServeEngine(cfg, params, **engine_kw).run(reqs[:2])   # warm-up
-    engine = ServeEngine(cfg, params, **engine_kw)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    for k in ops.KERNELS:
-        k.launches = 0
-    t0 = time.perf_counter()
-    results = engine.run(reqs)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    serve_counts = {k.name: k.launches for k in ops.KERNELS}
-    steps, chunks = engine.stats["decode_steps"], engine.stats["prefill_chunks"]
-    for req, res in zip(reqs, results):
-        require(res.finish_reason == "length" and len(res.tokens) == 16
-                and all(0 <= t < cfg.vocab_size for t in res.tokens),
-                f"request {req.uid}: {res.finish_reason}, {res.tokens}")
-    require(engine.allocator.n_free == engine.allocator.capacity,
-            "blocks leaked after the drain")
     L = cfg.n_layers
-    require(serve_counts == {"gemm": 3 * L * (steps + chunks),
-                             "paged_attention": L * steps,
-                             "flash_attention": 0},
-            f"launches while serving {serve_counts} do not match "
-            f"{steps} decode steps and {chunks} prefill chunks")
-    n_new = sum(len(r.tokens) for r in results)
-    ttft = [r.ttft_s * 1e3 for r in results]
-    print(f"[serve] 8 requests on 4 slots, prompts "
-          f"{[len(r.prompt) for r in reqs]}, 16 new tokens each, page 16, "
-          f"chunk 64: {n_new} tokens in {wall:.3f} s = {n_new / wall:.1f} "
-          f"tok/s; TTFT mean {np.mean(ttft):.1f} ms, max {max(ttft):.1f} "
-          f"ms; {steps} decode steps, {chunks} prefill chunks; peak device "
-          f"memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    n_new = 16 * len(reqs)
+
+    def serve(cfg_x, params_x, label, want):
+        """Serve the trace once after a warm-up, launch counts set to 0 just
+        before and read just after; ``want(steps, chunks)`` gives the
+        counts the path must show."""
+        ServeEngine(cfg_x, params_x, **engine_kw).run(reqs[:2])  # warm-up
+        engine = ServeEngine(cfg_x, params_x, **engine_kw)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for k in ops.KERNELS:
+            k.launches = 0
+        t0 = time.perf_counter()
+        results = engine.run(reqs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = {k.name: k.launches for k in ops.KERNELS}
+        steps = engine.stats["decode_steps"]
+        chunks = engine.stats["prefill_chunks"]
+        for req, res in zip(reqs, results):
+            require(res.finish_reason == "length" and len(res.tokens) == 16
+                    and all(0 <= t < cfg.vocab_size for t in res.tokens),
+                    f"{label} request {req.uid}: {res.finish_reason}, "
+                    f"{res.tokens}")
+        require(engine.allocator.n_free == engine.allocator.capacity,
+                f"{label}: blocks leaked after the drain")
+        expect = {k.name: 0 for k in ops.KERNELS}
+        expect.update(want(steps, chunks))
+        require(counts == expect,
+                f"{label}: launches while serving {counts} do not match "
+                f"{steps} decode steps and {chunks} prefill chunks ({expect})")
+        ttft = [r.ttft_s * 1e3 for r in results]
+        print(f"[{label}] 8 requests on 4 slots, prompts "
+              f"{[len(r.prompt) for r in reqs]}, 16 new tokens each, page "
+              f"16, chunk 64: {n_new} tokens in {wall:.3f} s = "
+              f"{n_new / wall:.1f} tok/s; TTFT mean {np.mean(ttft):.1f} ms, "
+              f"max {max(ttft):.1f} ms; {steps} decode steps, {chunks} "
+              f"prefill chunks; peak device memory "
+              f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+        return engine, results, counts
+
+    def hold(lg, served, what):
+        """The margin rule: each served token's logit within MARGIN of the
+        best, and the argmax where the top-1/top-2 gap exceeds MARGIN.
+        Returns (argmax hits, gated steps, worst gap)."""
+        require(lg.shape == (16, cfg.vocab_size)
+                and bool(torch.isfinite(lg).all()), f"{what}: logits")
+        top2 = lg.topk(2, dim=-1).values
+        served = torch.as_tensor(served, device=dev)
+        gap = top2[:, 0] - lg.gather(1, served[:, None])[:, 0]
+        decided = (top2[:, 0] - top2[:, 1]) > MARGIN
+        require(bool((gap <= MARGIN).all()), f"{what}: a served token is "
+                f"{gap.max().item():.4f} below the reference's best")
+        require(bool((gap[decided] == 0).all()),
+                f"{what}: served token differs from the clear argmax")
+        return int((gap == 0).sum()), int(decided.sum()), gap.max().item()
+
+    def forward_logits(params_x, req, tokens):
+        seq = np.concatenate([req.prompt, tokens[:-1]])
+        lg = logits_fn(params_x, cfg, forward(
+            params_x, cfg, torch.as_tensor(seq, device=dev)[None]))
+        return lg[0, len(req.prompt) - 1:]
+
+    engine, results, serve_counts = serve(
+        cfg, params, "serve", lambda steps, chunks: {
+            "gemm": 3 * L * (steps + chunks), "paged_attention": L * steps})
+    bf16_bytes = engine.param_bytes, engine.kv_pool_bytes
     print(f"[serve] launches while serving {serve_counts} (per decode step: "
           f"gemm {3 * L}, paged_attention {L}; per prefill chunk: gemm "
-          f"{3 * L})")
+          f"{3 * L}); weights {bf16_bytes[0] / 1e9:.3f} GB, KV pools "
+          f"{bf16_bytes[1] / 1e9:.3f} GB")
 
     # ---- 5. forward, teacher-forced on the served tokens ---------------
     for k in ops.KERNELS:
@@ -262,30 +379,16 @@ def main() -> int:
     worst, exact, gated = 0.0, 0, 0
     fwd_ms = []
     for req, res in zip(reqs, results):
-        seq = np.concatenate([req.prompt, res.tokens[:-1]])
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        lg = logits_fn(params, cfg, forward(
-            params, cfg, torch.as_tensor(seq, device=dev)[None]))
+        lg = forward_logits(params, req, res.tokens)
         torch.cuda.synchronize()
         fwd_ms.append((time.perf_counter() - t0) * 1e3)
-        lg = lg[0, len(req.prompt) - 1:]
-        require(lg.shape == (16, cfg.vocab_size)
-                and bool(torch.isfinite(lg).all()), "forward logits")
-        top2 = lg.topk(2, dim=-1).values
-        served = torch.as_tensor(res.tokens, device=dev)
-        gap = top2[:, 0] - lg.gather(1, served[:, None])[:, 0]
-        worst = max(worst, gap.max().item())
-        decided = (top2[:, 0] - top2[:, 1]) > MARGIN
-        require(bool((gap <= MARGIN).all()), f"request {req.uid}: a served "
-                f"token is {gap.max().item():.4f} below forward's best")
-        require(bool((gap[decided] == 0).all()), f"request {req.uid}: "
-                "served token differs from forward's clear argmax")
-        exact += int((gap == 0).sum())
-        gated += int(decided.sum())
+        e, g, w = hold(lg, res.tokens, f"request {req.uid} vs forward")
+        exact, gated, worst = exact + e, gated + g, max(worst, w)
     fwd_counts = {k.name: k.launches for k in ops.KERNELS}
-    require(fwd_counts == {"gemm": 3 * L * 8, "paged_attention": 0,
-                           "flash_attention": L * 8},
+    require(fwd_counts == {**{k.name: 0 for k in ops.KERNELS},
+                           "gemm": 3 * L * 8, "flash_attention": L * 8},
             f"launches in the 8 forward passes {fwd_counts}")
     lens = [len(r.prompt) + 15 for r in reqs]
     print(f"[forward] 8 teacher-forced passes of {min(lens)}-{max(lens)} "
@@ -299,36 +402,118 @@ def main() -> int:
     # ---- 6. where the device time goes while serving -------------------
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    engine = ServeEngine(cfg, params, **engine_kw)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        engine.run(reqs)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    by_kernel = sorted(((e.self_device_time_total, e.count, e.key)
-                        for e in prof.key_averages()
-                        if e.device_type == DeviceType.CUDA), reverse=True)
-    busy_ms = sum(t for t, _, _ in by_kernel) / 1e3
-    print(f"[profile] serving run under the profiler: wall {wall * 1e3:.1f} "
-          f"ms, device busy {busy_ms:.1f} ms "
-          f"({100 * busy_ms / (wall * 1e3):.1f}%)")
-    for t, n, key in by_kernel[:10]:
-        print(f"[profile] {t / 1e3:9.2f} ms {n:6d} x {key[:90]}")
 
-    # ---- 7. summary lines ----------------------------------------------
+    def profile_serving(cfg_x, params_x, label):
+        engine = ServeEngine(cfg_x, params_x, **engine_kw)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            engine.run(reqs)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        by_kernel = sorted(((e.self_device_time_total, e.count, e.key)
+                            for e in prof.key_averages()
+                            if e.device_type == DeviceType.CUDA),
+                           reverse=True)
+        busy_ms = sum(t for t, _, _ in by_kernel) / 1e3
+        print(f"[{label}] serving run under the profiler: wall "
+              f"{wall * 1e3:.1f} ms, device busy {busy_ms:.1f} ms "
+              f"({100 * busy_ms / (wall * 1e3):.1f}%)")
+        for t, n, key in by_kernel[:10]:
+            print(f"[{label}] {t / 1e3:9.2f} ms {n:6d} x {key[:90]}")
+
+    profile_serving(cfg, params, "profile")
+
+    # ---- 7. the quantized rungs ----------------------------------------
+    # The bf16 weights wait on the host, so that each rung's peak device
+    # memory counts its own weights, pools and activations only.
+    def to(tree, device):
+        return {k: to(v, device) if isinstance(v, dict) else v.to(device)
+                for k, v in tree.items()}
+
+    params_host = to(params, "cpu")
+    del params, engine, lg
+    n_blocks = -(-engine_kw["max_len"] // 16) + 1
+    table = torch.arange(1, n_blocks, dtype=torch.int32, device=dev)[None]
+    rung_counts = {}
+    for wd, kd in (("int8", "int8"), ("int4", "fp8")):
+        gc.collect()     # the previous rung's tensors (and profiler)
+        label = f"serve_{wd}" if wd == kd else f"serve_{wd}_{kd}"
+        cfg_q = cfg.replace(weight_dtype=wd, kv_dtype=kd, quant_block=32)
+        qparams = quantize_params(to(params_host, dev), cfg_q)
+        engine, q_results, counts = serve(
+            cfg_q, qparams, label, lambda steps, chunks: {
+                "gemm_wq": 3 * L * (steps + chunks),
+                "paged_attention_quant": L * steps})
+        rung_counts[label] = counts
+        w_bytes, kv_bytes = engine.param_bytes, engine.kv_pool_bytes
+        print(f"[{label}] launches while serving {counts} (per decode step: "
+              f"gemm_wq {3 * L}, paged_attention_quant {L}; per prefill "
+              f"chunk: gemm_wq {3 * L}); weights {w_bytes / 1e9:.3f} GB = "
+              f"{w_bytes / bf16_bytes[0]:.4f} x bf16, KV pools "
+              f"{kv_bytes / 1e9:.3f} GB = {kv_bytes / bf16_bytes[1]:.4f} x "
+              f"bf16")
+        del engine
+        if profile_rungs:
+            profile_serving(cfg_q, qparams, f"profile_{label}")
+        # the gate: each request alone through the rung's model-level path
+        worst, exact, gated = 0.0, 0, 0
+        replays = []
+        for req, res in zip(reqs, q_results):
+            cache = init_cache(cfg_q, n_blocks, 16, dev)
+            prompt = torch.as_tensor(req.prompt, device=dev)[None]
+            for off in range(0, prompt.shape[1], 64):
+                last = extend_step(qparams, cfg_q, cache,
+                                   prompt[:, off:off + 64], off, 0, table)
+            rows = [last[0, 0]]
+            for i, tok in enumerate(res.tokens[:-1]):
+                pos = torch.tensor([prompt.shape[1] + i], device=dev)
+                rows.append(decode_step(qparams, cfg_q, cache,
+                                        torch.tensor([[tok]], device=dev),
+                                        pos, table)[0, 0])
+            replays.append(torch.stack(rows))
+            e, g, w = hold(replays[-1], res.tokens,
+                           f"{label} request {req.uid} vs its replay")
+            exact, gated, worst = exact + e, gated + g, max(worst, w)
+        print(f"[{label}] served tokens vs each request replayed alone "
+              f"(extend_step chunks of 64, then decode_step): exact argmax "
+              f"{exact}/{n_new}, {gated} steps with a top-1/top-2 gap > "
+              f"{MARGIN} all equal, worst gap {worst:.4f} (margin {MARGIN})")
+        del qparams, cache
+        # agreement with the bf16 model, teacher-forced on the rung's
+        # tokens (reported only): argmax hits and the cosine similarity of
+        # the rung's logits to bf16's at the same positions
+        params_dev = to(params_host, dev)
+        agree, cos = 0, []
+        for req, res, rows in zip(reqs, q_results, replays):
+            lg = forward_logits(params_dev, req, res.tokens)
+            agree += int((lg.argmax(-1).cpu() == torch.tensor(res.tokens))
+                         .sum())
+            cos.append(F.cosine_similarity(rows, lg, dim=-1).mean().item())
+        same = sum(a == b for r, q in zip(results, q_results)
+                   for a, b in zip(r.tokens, q.tokens))
+        print(f"[{label}] agreement with bf16 (not gated): the bf16 model's "
+              f"argmax equals the served token at {agree}/{n_new} "
+              f"teacher-forced steps; logit cosine similarity to bf16 mean "
+              f"{np.mean(cos):.4f} (min over requests {min(cos):.4f}); "
+              f"free-running tokens equal to the bf16 run's {same}/{n_new}")
+        del params_dev, replays, rows, lg
+
+    # ---- 8. summary lines ----------------------------------------------
     kernels = []
     root = Path(__file__).resolve().parent
     for k in ops.KERNELS:
         e = entries[k.name]
+        by_path = {"serve": serve_counts[k.name],
+                   **{lbl: c[k.name] for lbl, c in rung_counts.items()},
+                   "forward": fwd_counts[k.name]}
         kernels.append({
             "name": k.name, "route": "cuda",
             "source": str(k.source.relative_to(root)),
             "replaces": k.replaces,
-            "launches": serve_counts[k.name] + fwd_counts[k.name],
-            "launches_by_path": {"serve": serve_counts[k.name],
-                                 "forward": fwd_counts[k.name]},
+            "launches": sum(by_path.values()),
+            "launches_by_path": by_path,
             "shape": e["shape"], "max_abs_err": e["max_abs_err"],
             "ms": e["ms"], "plain_ms": e["plain_ms"],
             "bound_ms": e["bound_ms"], "bound_by": e["bound_by"],

@@ -41,6 +41,12 @@ class ModelConfig:
     dtype: str = "bfloat16"       # activation/compute dtype
     page_size: int = 16
     prefill_chunk: int = 64
+    # weight-only quantization of the matmul weights (repro_torch.quant) and
+    # quantized paged KV pools with per-row float16 scales; int4 is
+    # weight-only, since pool rows stay byte-addressable
+    weight_dtype: str = ""        # "" | int8 | fp8 | float8_e4m3fn | int4
+    kv_dtype: str = ""            # "" | int8 | fp8 | float8_e4m3fn
+    quant_block: int = 0          # 0 => per-channel; else scale-block length
 
     def __post_init__(self):
         if any(sp != LayerSpec("full", "dense") for sp in self.pattern):
@@ -53,6 +59,15 @@ class ModelConfig:
             raise ValueError("n_heads must be a multiple of n_kv_heads")
         if self.page_size < 1 or self.prefill_chunk < 1:
             raise ValueError("page_size and prefill_chunk must be >= 1")
+        quant_names = ("", "int8", "fp8", "float8_e4m3fn")
+        if self.weight_dtype not in quant_names + ("int4",):
+            raise ValueError(f"weight_dtype={self.weight_dtype!r}; expected "
+                             f"one of {quant_names + ('int4',)}")
+        if self.kv_dtype not in quant_names:
+            raise ValueError(f"kv_dtype={self.kv_dtype!r}; expected one of "
+                             f"{quant_names}")
+        if self.quant_block < 0:
+            raise ValueError("quant_block must be >= 0")
 
     @property
     def compute_dtype(self) -> torch.dtype:

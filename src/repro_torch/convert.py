@@ -3,7 +3,11 @@
 :func:`convert_params` takes the JAX package's parameter pytree as numpy
 arrays (nested dicts and lists, as ``repro.models.init`` builds it and
 ``jax.tree.map(np.asarray, params)`` exports it) and returns the port's
-parameter dict (``models/transformer.py``). :func:`load_checkpoint` reads a
+parameter dict (``models/transformer.py``). A tree that
+``repro.quant.quantize_params`` already quantized converts too: its
+quantized leaves (anything with ``q``, ``scales``, ``axis`` and ``pack``
+attributes) become the port's :class:`~repro_torch.quant.QuantTensor` objects,
+codes and scales unchanged. :func:`load_checkpoint` reads a
 ``repro.ckpt`` step directory (``manifest.json`` plus one ``.npy`` per leaf)
 into such a pytree without importing ``repro``.
 """
@@ -17,6 +21,22 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve
+from repro_torch.quant.tensor import QuantTensor
+
+
+def _is_quant_leaf(a) -> bool:
+    return all(hasattr(a, n) for n in ("q", "scales", "axis", "pack"))
+
+
+def _tensor(a, device: torch.device) -> torch.Tensor:
+    """A numpy array as a torch tensor of the same dtype; float8 arrays
+    (ml_dtypes, which ``torch.from_numpy`` does not take) cross as uint8
+    bytes and are viewed back."""
+    a = np.asarray(a)
+    if a.dtype.name == "float8_e4m3fn":
+        return torch.from_numpy(a.view(np.uint8).copy()).to(device).view(
+            torch.float8_e4m3fn)
+    return torch.from_numpy(np.array(a)).to(device)
 
 
 def convert_params(tree: dict, cfg: ModelConfig, *, device: str = "cuda"
@@ -35,6 +55,10 @@ def convert_params(tree: dict, cfg: ModelConfig, *, device: str = "cuda"
             "with no prefix/suffix layers")
 
     def t(a):
+        if _is_quant_leaf(a):
+            axis = a.axis if a.axis < 0 else a.axis - np.ndim(a.q)
+            return QuantTensor(_tensor(a.q, dev), _tensor(a.scales, dev),
+                               axis=axis, pack=a.pack)
         a = np.asarray(a).astype(np.float32)
         return torch.from_numpy(a).to(device=dev, dtype=cfg.compute_dtype)
 

@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` compiles on its own into a shared library with a
 plain C interface (``nvcc -gencode arch=compute_90a,code=sm_90a -shared``)
 under ``_build/`` beside this file, which git ignores. The library's name
-carries a digest of its source and flags, so an edited source is rebuilt
-and a stale library is never loaded. Nothing is built when a module is
+carries a digest of its source, the shared ``csrc/*.cuh`` headers and the
+flags, so an edited source or header is rebuilt and a stale library is
+never loaded. Nothing is built when a module is
 imported: a kernel builds at its first launch, or all at once, in parallel,
 through :func:`build_all`.
 """
@@ -54,6 +55,8 @@ class CudaKernel:
     @property
     def lib_path(self) -> Path:
         h = hashlib.sha256(self.source.read_bytes())
+        for header in sorted(CSRC.glob("*.cuh")):
+            h.update(header.read_bytes())
         h.update(" ".join(NVCC_FLAGS).encode())
         return BUILD_DIR / f"{self.name}-{h.hexdigest()[:16]}.so"
 

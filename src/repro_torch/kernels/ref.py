@@ -1,4 +1,5 @@
-"""Plain PyTorch versions of the kernels (``repro/kernels/ref.py`` :8, :62, :89).
+"""Plain PyTorch versions of the kernels (``repro/kernels/ref.py`` :8, :23,
+:62, :89).
 
 They are what ``kernels/ops.py`` runs on CPU tensors, and what
 ``chip_smoke.py`` holds each CUDA kernel against on the card. Every one
@@ -10,6 +11,8 @@ import math
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.quant.tensor import as_bytes, unpack_int4
 
 NEG_INF = -1e30
 
@@ -34,6 +37,22 @@ def gemm_ref(x, w, *, bias=None, scale: float = 1.0, act: str | None = None,
     if bias is not None:
         out = out + bias.float()
     return _act(out, act).to(out_dtype or x.dtype)
+
+
+def gemm_wq_ref(x, qw, scales, *, bias=None, scale: float = 1.0,
+                act: str | None = None, out_dtype: torch.dtype | None = None):
+    """Weight-quantized x (M, K) @ qw: qw (K, N) int8 or fp8-e4m3 codes, or
+    (K/2, N) int8 bytes of packed int4 (told apart by the half-K relation),
+    with (nb, N) scales, nb | K. The weight is unpacked and dequantized in
+    float32, then ``gemm_ref`` applies the epilogue."""
+    if qw.shape[0] * 2 == x.shape[-1] and qw.dtype == torch.int8:
+        qw = unpack_int4(qw, axis=0)
+    K, N = qw.shape
+    nb = scales.shape[0]
+    w = (qw.float().reshape(nb, K // nb, N)
+         * scales.float()[:, None, :]).reshape(K, N)
+    return gemm_ref(x, w, bias=bias, scale=scale, act=act,
+                    out_dtype=out_dtype)
 
 
 def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
@@ -64,11 +83,14 @@ def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
     return out.reshape(BH, Sq, D).to(q.dtype)
 
 
-def paged_attention_ref(q, k_pool, v_pool, block_tables, lengths, *,
+def paged_attention_ref(q, k_pool, v_pool, block_tables, lengths,
+                        k_scale=None, v_scale=None, *,
                         scale: float | None = None, cap: float = 0.0):
     """q: (B, K, G, D) one token per slot; pools (N, page, K, D);
     block_tables (B, P) int32; lengths (B,) int32. Row ``p`` of slot ``b``
-    is ``pool[block_tables[b, p // page], p % page]``.
+    is ``pool[block_tables[b, p // page], p % page]``. ``k_scale`` and
+    ``v_scale`` ((N, page, K) float16) mark int8 or fp8 pools, whose
+    gathered rows are dequantized in float32 before scoring.
 
     A slot of length 0 reads no page and returns zeros, as the Pallas
     kernel and the CUDA kernel do (``repro``'s gather oracle averages the
@@ -78,8 +100,14 @@ def paged_attention_ref(q, k_pool, v_pool, block_tables, lengths, *,
     page = k_pool.shape[1]
     P = block_tables.shape[1]
     tables = block_tables.long()
-    kk = k_pool[tables].reshape(B, P * page, K, D).float()
-    vv = v_pool[tables].reshape(B, P * page, K, D).float()
+
+    def rows(pool, row_scale):
+        r = as_bytes(pool)[tables].view(pool.dtype).reshape(
+            B, P * page, K, D).float()
+        if row_scale is not None:
+            r = r * row_scale[tables].reshape(B, P * page, K, 1).float()
+        return r
+    kk, vv = rows(k_pool, k_scale), rows(v_pool, v_scale)
     scale = 1.0 / math.sqrt(D) if scale is None else scale
     s = torch.einsum("bkgd,bskd->bkgs", q.float(), kk) * scale
     if cap:

@@ -2,10 +2,13 @@
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-0.6b \
       --requests 8 --slots 4 --max-new 16          # on the card
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-0.6b \
+      --weight-dtype int4 --kv-dtype fp8 --quant-block 32   # quantized
   PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu
 
 Weights are random, drawn from a ``torch.Generator`` seeded by ``--seed``;
-so are the prompts (numpy, same seed). Prints one JSON object.
+so are the prompts (numpy, same seed). Prints one JSON object, with the
+served weights' bytes and the KV pools' bytes.
 """
 from __future__ import annotations
 
@@ -34,12 +37,26 @@ def main(argv=None):
                     help="KV rows per block (default: cfg.page_size)")
     ap.add_argument("--prefill-chunk", type=int, default=None,
                     help="chunked-prefill tokens (default: cfg.prefill_chunk)")
+    ap.add_argument("--weight-dtype", default=None,
+                    choices=("int8", "fp8", "int4"),
+                    help="weight-only quantization of the matmul weights "
+                         "(int4 packs two codes per byte); the MLP runs the "
+                         "gemm_wq kernel")
+    ap.add_argument("--kv-dtype", default=None, choices=("int8", "fp8"),
+                    help="quantized paged KV pools with per-row scales")
+    ap.add_argument("--quant-block", type=int, default=None,
+                    help="per-block weight-scale length (0 = per-channel)")
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     args = ap.parse_args(argv)
 
     cfg = get_arch(args.arch)
     if args.reduced:
         cfg = reduced(cfg)
+    quant = {k: v for k, v in (("weight_dtype", args.weight_dtype),
+                               ("kv_dtype", args.kv_dtype),
+                               ("quant_block", args.quant_block))
+             if v is not None}
+    cfg = cfg.replace(**quant)
     params = init(cfg, seed=args.seed, device=args.device)
     engine = ServeEngine(cfg, params, max_slots=args.slots,
                          max_len=args.max_len, page_size=args.page_size,
@@ -60,6 +77,10 @@ def main(argv=None):
     new_tokens = sum(len(r.tokens) for r in results)
     print(json.dumps({
         "arch": cfg.name, "device": str(engine.device),
+        "weight_dtype": cfg.weight_dtype or cfg.dtype,
+        "kv_dtype": cfg.kv_dtype or cfg.dtype, "quant_block": cfg.quant_block,
+        "weight_bytes": engine.param_bytes,
+        "kv_pool_bytes": engine.kv_pool_bytes,
         "requests": len(results),
         "finished": sum(r.finish_reason in ("eos", "length") for r in results),
         "new_tokens": new_tokens, "wall_s": dt,

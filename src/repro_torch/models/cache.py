@@ -5,23 +5,64 @@ Every full-attention layer shares one pool of ``n_blocks`` blocks of
 table, position ``p`` at row ``p % page_size`` of block
 ``table[p // page_size]``. Block 0 is the null block: never allocated, it
 is what unused table entries point at.
+
+With ``cfg.kv_dtype`` set ("int8" or "fp8"), the pools hold K/V codes at
+one byte per element plus per-row float16 absmax scales ``k_scale`` and
+``v_scale`` of shape (layers, n_blocks, page_size, kv heads): writes
+quantize each row, reads dequantize with its scale. The sizing helpers
+count the storage width and the scales.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.quant.tensor import SCALE_DTYPE, storage_dtype
+
+
+def _pool_dtype(cfg: ModelConfig) -> torch.dtype:
+    return storage_dtype(cfg.kv_dtype) if cfg.kv_dtype else cfg.compute_dtype
 
 
 def init_cache(cfg: ModelConfig, n_blocks: int, page_size: int,
                device: torch.device) -> dict[str, torch.Tensor]:
     """Zeroed pools ``{"k", "v"}`` of shape (layers, n_blocks, page_size,
-    kv heads, head dim) in the compute dtype; the leading axis is the
-    stacked ``blocks`` axis of the reference's cache."""
+    kv heads, head dim) in the compute dtype, or in int8 / fp8 codes with
+    ``{"k_scale", "v_scale"}`` when ``cfg.kv_dtype`` is set; the leading
+    axis is the stacked ``blocks`` axis of the reference's cache."""
     shape = (cfg.n_layers, n_blocks, page_size, cfg.n_kv_heads,
              cfg.resolved_head_dim)
-    return {"k": torch.zeros(shape, dtype=cfg.compute_dtype, device=device),
-            "v": torch.zeros(shape, dtype=cfg.compute_dtype, device=device)}
+    dt = _pool_dtype(cfg)
+    cache = {"k": torch.zeros(shape, dtype=dt, device=device),
+             "v": torch.zeros(shape, dtype=dt, device=device)}
+    if cfg.kv_dtype:
+        for name in ("k_scale", "v_scale"):
+            cache[name] = torch.zeros(shape[:-1], dtype=SCALE_DTYPE,
+                                      device=device)
+    return cache
+
+
+def cache_bytes(cache: dict[str, torch.Tensor]) -> int:
+    """Device bytes of the pools, scales included."""
+    return sum(t.numel() * t.element_size() for t in cache.values())
+
+
+def kv_block_bytes(cfg: ModelConfig, page_size: int) -> int:
+    """KV bytes of one pool block summed over the layers, at the pools'
+    storage width plus, for quantized pools, two float16 scales per row
+    and head (``repro/models/cache.py:163``)."""
+    hd, K = cfg.resolved_head_dim, cfg.n_kv_heads
+    scale_bytes_row = 2 * SCALE_DTYPE.itemsize if cfg.kv_dtype else 0
+    per_row = K * (hd * 2 * _pool_dtype(cfg).itemsize + scale_bytes_row)
+    return cfg.n_layers * page_size * per_row
+
+
+def n_blocks_for_bytes(cfg: ModelConfig, hbm_bytes: int, page_size: int
+                       ) -> int:
+    """Pool blocks, the null block included, that a KV budget of
+    ``hbm_bytes`` holds (``repro/models/cache.py:179``, one device)."""
+    per_block = kv_block_bytes(cfg, page_size)
+    return max(int(hbm_bytes // max(per_block, 1)), 1) + 1
 
 
 def page_rows(table: torch.Tensor, positions: torch.Tensor, page_size: int

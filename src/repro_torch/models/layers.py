@@ -6,6 +6,7 @@ import math
 import torch
 
 from repro_torch.kernels import ops
+from repro_torch.quant.tensor import QuantTensor
 
 
 def apply_norm(scale: torch.Tensor, x: torch.Tensor, eps: float) -> torch.Tensor:
@@ -28,18 +29,23 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor
                      dim=-1).to(x.dtype)
 
 
-def dense(x: torch.Tensor, w: torch.Tensor, *, act: str | None = None
-          ) -> torch.Tensor:
-    """Linear layer through the ``gemm`` kernel, the activation fused into
-    its epilogue; leading dims flatten into M (``layers.py:105``)."""
+def dense(x: torch.Tensor, w: torch.Tensor | QuantTensor, *,
+          act: str | None = None) -> torch.Tensor:
+    """Linear layer through the ``gemm`` kernel, or the ``gemm_wq`` kernel
+    for a :class:`QuantTensor` weight, the activation fused into its
+    epilogue; leading dims flatten into M (``layers.py:105``)."""
     lead = x.shape[:-1]
-    y = ops.gemm(x.reshape(-1, x.shape[-1]), w, act=act)
+    x2 = x.reshape(-1, x.shape[-1])
+    if isinstance(w, QuantTensor):
+        y = ops.gemm_wq(x2, w.q, w.scales, act=act)
+    else:
+        y = ops.gemm(x2, w, act=act)
     return y.reshape(*lead, w.shape[-1])
 
 
 def apply_mlp(p: dict, x: torch.Tensor, act: str, gated: bool) -> torch.Tensor:
-    """Gated (or plain) MLP, three ``gemm`` launches when gated
-    (``layers.py:134``)."""
+    """Gated (or plain) MLP, three ``gemm`` (or ``gemm_wq``) launches when
+    gated (``layers.py:134``)."""
     if gated:
         h = dense(x, p["gate"], act=act) * dense(x, p["up"])
     else:

@@ -9,7 +9,11 @@ its scanned pattern (``transformer.py:76-114``):
                 ["q_norm", "k_norm"], "mlp_norm", ["gate"], "up", "down"}}
 
 with projection kernels stored (d_in, d_out) and norms computing
-``x * (1 + scale)``.
+``x * (1 + scale)``. After ``quant.quantize_params`` the projection kernels
+and the embedding table are :class:`~repro_torch.quant.QuantTensor` objects:
+stacked ones slice per layer like tensors, the embedding lookup
+dequantizes only the rows it gathers, and the tied LM head dequantizes the
+table per call, a slab of rows at a time, keeping no dense copy.
 """
 from __future__ import annotations
 
@@ -21,6 +25,11 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve
 from repro_torch.models import attention as attn
 from repro_torch.models.layers import apply_mlp, apply_norm
+from repro_torch.quant.tensor import QuantTensor
+
+#: rows of a quantized tied embedding table dequantized at a time by
+#: ``logits_fn`` (a 64 MiB float32 slab at d_model 1024)
+HEAD_ROWS = 16384
 
 
 def init(cfg: ModelConfig, *, seed: int = 0, device: str = "cuda") -> dict:
@@ -75,16 +84,29 @@ def _block(lp: dict, cfg: ModelConfig, x: torch.Tensor, attend) -> torch.Tensor:
 
 def embed_tokens(params: dict, cfg: ModelConfig, tokens: torch.Tensor
                  ) -> torch.Tensor:
-    """(B, S) int ids -> (B, S, d) in the compute dtype (``:382``)."""
-    return params["embed"][tokens]
+    """(B, S) int ids -> (B, S, d) in the compute dtype (``:382``); a
+    quantized table dequantizes only the looked-up rows."""
+    table = params["embed"]
+    if isinstance(table, QuantTensor):
+        return table.take_rows(tokens, dtype=cfg.compute_dtype)
+    return table[tokens]
 
 
 def logits_fn(params: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     """Final norm and LM head (the tied embedding unless ``lm_head``), as
     float32 logits (``:405``)."""
     h = apply_norm(params["final_norm"], x, cfg.norm_eps)
-    head = (params["embed"].T if cfg.tie_embeddings else params["lm_head"])
-    return (h @ head).float()
+    if not cfg.tie_embeddings:
+        head = params["lm_head"]
+        if isinstance(head, QuantTensor):
+            head = head.dequantize(h.dtype)
+        return (h @ head).float()
+    table = params["embed"]
+    if not isinstance(table, QuantTensor):
+        return (h @ table.T).float()
+    return torch.cat([
+        (h @ table[r:r + HEAD_ROWS].dequantize(h.dtype).T).float()
+        for r in range(0, table.shape[0], HEAD_ROWS)], dim=-1)
 
 
 def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor
@@ -106,7 +128,7 @@ def decode_step(params: dict, cfg: ModelConfig, cache: dict,
     returns logits (B, 1, V) (``:479``)."""
     x = embed_tokens(params, cfg, tokens)
     for i, lp in _layers(params):
-        pools = {"k": cache["k"][i], "v": cache["v"][i]}
+        pools = {name: t[i] for name, t in cache.items()}
         x = _block(lp, cfg, x, lambda h, lp=lp, pools=pools:
                    attn.attention_decode(lp, cfg, h, pools, pos,
                                          block_tables))
@@ -122,7 +144,7 @@ def extend_step(params: dict, cfg: ModelConfig, cache: dict,
     x = embed_tokens(params, cfg, tokens)
     table = block_tables[slot]
     for i, lp in _layers(params):
-        pools = {"k": cache["k"][i], "v": cache["v"][i]}
+        pools = {name: t[i] for name, t in cache.items()}
         x = _block(lp, cfg, x, lambda h, lp=lp, pools=pools:
                    attn.attention_extend(lp, cfg, h, pools, pos, table))
     return logits_fn(params, cfg, x[:, -1:])

@@ -12,9 +12,13 @@ never stalls the running slots. Sampling is greedy: the argmax is taken on
 the device and only the chosen token ids reach the host. A request's blocks
 return to the pool the moment it finishes.
 
+With ``cfg.weight_dtype`` set the engine quantizes the weights it is given
+(``quant.quantize_params``), as the reference engine does at init; with
+``cfg.kv_dtype`` set its pools hold int8 or fp8 codes with per-row scales.
+
 Not ported yet (``ROADMAP.md``): prefix caching, preemption, overlapped
 decode, priority scheduling, temperature sampling, speculative decoding and
-forks, quantized pools, sharded pools, telemetry.
+forks, sharded pools, telemetry.
 """
 from __future__ import annotations
 
@@ -28,8 +32,9 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve
 from repro_torch.models import decode_step, extend_step
-from repro_torch.models.cache import (default_n_blocks, init_cache,
-                                      pages_per_slot)
+from repro_torch.models.cache import (cache_bytes, default_n_blocks,
+                                      init_cache, pages_per_slot)
+from repro_torch.quant.params import param_bytes, quantize_params
 
 #: Slot lifecycle: FREE -> PREFILL (chunked) -> DECODE -> FREE.
 FREE, PREFILL, DECODE = 0, 1, 2
@@ -105,7 +110,7 @@ class ServeEngine:
         if params["embed"].device.type != self.device.type:
             raise ValueError(f"params live on {params['embed'].device}, "
                              f"engine device is {self.device}")
-        self.cfg, self.params = cfg, params
+        self.cfg, self.params = cfg, quantize_params(params, cfg)
         self.max_slots, self.max_len, self.eos_id = max_slots, max_len, eos_id
         self.page_size = page_size or cfg.page_size
         self.prefill_chunk = prefill_chunk or cfg.prefill_chunk
@@ -127,6 +132,17 @@ class ServeEngine:
         self.results: dict[int, Result] = {}
         self.stats = {"prefills": 0, "prefill_chunks": 0, "decode_steps": 0,
                       "rejected": 0}
+
+    @property
+    def param_bytes(self) -> int:
+        """Device bytes of the served weights (codes and scales when
+        quantized)."""
+        return param_bytes(self.params)
+
+    @property
+    def kv_pool_bytes(self) -> int:
+        """Device bytes of the KV pools, scales included."""
+        return cache_bytes(self.cache)
 
     # ---- requests ------------------------------------------------------
     def submit(self, req: Request) -> None:

@@ -7,7 +7,10 @@ Every test here needs a CUDA card and skips without one; on the H100 run
 The file imports no JAX, so it runs where only PyTorch is installed. Inputs
 are bf16 from seeded ``torch.Generator``s, at the serving path's widths and
 at ragged shapes; outputs are compared at atol/rtol 2e-2 (a little over one
-bf16 rounding step of the outputs, whose magnitudes stay below ~2).
+bf16 rounding step of the outputs, whose magnitudes stay below ~2). The
+quantized kernels are held to their plain versions on the same codes and
+scales: ``gemm_wq`` rounds each dequantized weight to bf16 once, as a bf16
+weight is rounded, which stays inside the same tolerance.
 """
 from __future__ import annotations
 
@@ -18,8 +21,10 @@ import torch
 
 from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import gemm as tgemm
+from repro_torch.kernels import gemm_wq as twq
 from repro_torch.kernels import paged_attention as tpa
 from repro_torch.kernels import ref
+from repro_torch.quant import quantize_kv, quantize_weight
 
 
 # --------------------------------------------------------------------------
@@ -84,4 +89,51 @@ def test_cuda_paged_attention_matches_plain(cuda, D, G, page):
                                      cap=cap).float(),
             ref.paged_attention_ref(q, kp, vp, tables, lengths,
                                         cap=cap).float(),
+            atol=2e-2, rtol=2e-2)
+
+
+# --------------------------------------------------------------------------
+# quantized kernels: gemm_wq and paged_attention over int8 / fp8 pools
+# --------------------------------------------------------------------------
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,block,m,k,n,act", [
+    ("int8", 32, 4, 1024, 3072, "silu"), ("fp8", 32, 64, 3072, 1024, None),
+    ("int4", 32, 4, 1024, 3072, "gelu"), ("int8", 0, 37, 200, 65, None),
+    ("int4", 16, 5, 96, 130, "silu")])
+def test_cuda_gemm_wq_matches_plain(cuda, dtype, block, m, k, n, act):
+    g = torch.Generator(device=cuda).manual_seed(3)
+    x, w = _bf16((m, k), g, cuda), _bf16((k, n), g, cuda, k ** -0.5)
+    qw, scales = quantize_weight(w, dtype, block=block)
+    b = _bf16((n,), g, cuda)
+    for out_dtype in (torch.bfloat16, torch.float32):
+        got = twq.gemm_wq_cuda(x, qw, scales, b, scale=0.5, act=act,
+                               out_dtype=out_dtype)
+        want = ref.gemm_wq_ref(x, qw, scales, bias=b, scale=0.5, act=act,
+                               out_dtype=out_dtype)
+        torch.testing.assert_close(got.float(), want.float(), atol=2e-2,
+                                   rtol=2e-2)
+    got = twq.gemm_wq_cuda(x.float(), qw, scales, act=act)
+    torch.testing.assert_close(
+        got, ref.gemm_wq_ref(x.float(), qw, scales, act=act), atol=2e-2,
+        rtol=2e-2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["int8", "fp8"])
+@pytest.mark.parametrize("D,G,page", [(128, 2, 16), (64, 8, 8)])
+def test_cuda_paged_attention_quant_matches_plain(cuda, dtype, D, G, page):
+    g = torch.Generator(device=cuda).manual_seed(4)
+    B, K, N, P = 5, 4, 64, 12
+    q = _bf16((B, K, G, D), g, cuda)
+    (kp, ks), (vp, vs) = (quantize_kv(_bf16((N, page, K, D), g, cuda), dtype)
+                          for _ in range(2))
+    lengths = torch.tensor([1, page + 1, 0, P * page, 3 * page],
+                           dtype=torch.int32, device=cuda)
+    tables = torch.randperm(N - 1, generator=g, device=cuda)[:B * P] + 1
+    tables = tables.reshape(B, P).to(torch.int32).contiguous()
+    for cap in (0.0, 4.0):
+        args = (q, kp, vp, tables, lengths, ks, vs)
+        torch.testing.assert_close(
+            tpa.paged_attention_cuda(*args, cap=cap).float(),
+            ref.paged_attention_ref(*args, cap=cap).float(),
             atol=2e-2, rtol=2e-2)

@@ -58,7 +58,10 @@ def model():
 
 @pytest.mark.parametrize("make", [lambda m: m.get_arch("qwen3-0.6b"),
                                   lambda m: m.reduced(m.get_arch(
-                                      "qwen3-0.6b"))])
+                                      "qwen3-0.6b")),
+                                  lambda m: m.get_arch("qwen3-0.6b").replace(
+                                      weight_dtype="int4", kv_dtype="fp8",
+                                      quant_block=32)])
 def test_config_copy_matches_reference(make):
     import repro.configs as jc
     import repro_torch.configs as tc
@@ -70,6 +73,17 @@ def test_config_copy_matches_reference(make):
                          for x in (mine, ref))
         assert mine == ref, f.name
     assert cfg.resolved_head_dim == jcfg.resolved_head_dim
+
+
+@pytest.mark.parametrize("bad", [dict(weight_dtype="int2"),
+                                 dict(kv_dtype="int4"),
+                                 dict(quant_block=-1)])
+def test_quant_config_validation_matches_reference(bad):
+    import repro.configs as jc
+    import repro_torch.configs as tc
+    for m in (jc, tc):
+        with pytest.raises(ValueError):
+            m.get_arch("qwen3-0.6b").replace(**bad)
 
 
 def test_unported_layouts_are_refused():
