@@ -6,12 +6,15 @@
 Phases, each fatal on failure (nothing is caught):
 
 1. print the card's name and power limit (``nvidia-smi``);
-2. build the five CUDA kernels from ``src/repro_torch/kernels/csrc/``, one
+2. build the six CUDA kernels from ``src/repro_torch/kernels/csrc/``, one
    ``nvcc`` each, all started together, and print their registers, spills
    and shared memory;
 3. hold each kernel against its plain PyTorch version at the full-width
-   shapes of qwen3-0.6b's serving path, and time kernel, plain version and,
-   where one PyTorch call computes the same function, that call. Every
+   shapes of qwen3-0.6b's serving path (``lru_scan`` at falcon-mamba-7b's:
+   an ``extend_step`` chunk of 64 and a ``forward`` of 215 tokens over
+   D = 8192 * 16 channels, and a ragged shape), and time kernel, plain
+   version and, where one PyTorch call computes the same function, that
+   call. Every
    timed call starts with a cold L2 cache: a 512 MiB buffer is rewritten
    before it, as each layer's weights and KV pages are cold on the path.
    That write also keeps the device busy while the host enqueues the
@@ -40,7 +43,25 @@ Phases, each fatal on failure (nothing is caught):
    Agreement with the bf16 model (its argmax on the rung's tokens, and the
    cosine similarity of the two models' logits) is reported, not gated:
    random weights have near-tied logits;
-8. print the ``kernels`` JSON line, then the result line.
+8. free qwen3-0.6b's weights, then serve the same kind of trace (8
+   requests, prompts of 40-200 tokens, 16 new tokens, 4 slots, prefill
+   chunks of 64) with full-width falcon-mamba-7b (64 Mamba-1 layers,
+   d_model 4096, vocab 65024, random bf16 weights from a seeded
+   ``torch.Generator``), counted the same way: only ``lru_scan`` may have
+   run, 64 times per prefill chunk. Then ``forward`` on each prompt with
+   its served tokens appended, 64 ``lru_scan`` launches per call. The same
+   weights are then served and run through ``forward`` in float32, counted
+   the same way (with ``--profile-rungs`` each serving run is profiled as
+   in phase 6). Gates: in float32 every served token holds to forward's
+   logits by the margin rule. In bf16 every served token holds by the same
+   rule to its request replayed alone through ``extend_step`` (chunks of
+   64) and ``decode_step``; and bf16 forward, that replay and float32
+   forward of the same weights on the bf16 tokens (the witness) must agree
+   within ``BF16_LOGIT_TOL``. The margin rule against bf16 forward is
+   reported, not gated: the two bf16 paths round at different points and
+   64 layers carry that to logit differences of up to ~0.3, over the
+   margin, while in float32 the two agree to ~1e-4;
+9. print the ``kernels`` JSON line, then the result line.
 
 Exits non-zero, printing no result, when ``torch.cuda.is_available()`` is
 false or when the repository's ``src/repro_torch`` is not beside it.
@@ -57,15 +78,26 @@ from pathlib import Path
 
 MEM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3
 BF16_FLOP_PER_S = 989e12    # H100 SXM dense bf16 tensor-core peak
+F32_FLOP_PER_S = 67e12      # H100 SXM float32 outside the tensor cores
 #: kernel vs plain version, elementwise |got - want| <= ATOL + RTOL * |want|:
 #: bf16 outputs round at ~0.4% and the two sum in different orders
 ATOL = RTOL = 2e-2
+#: lru_scan is float32 and does the plain version's rounded multiply and
+#: add per step in the same order
+LRU_TOL = 1e-5
 #: teacher forcing in bf16: the served token's forward logit must be within
 #: MARGIN of forward's best, and equal the argmax where forward's top-1/top-2
 #: gap exceeds MARGIN. Paged decode and the whole-sequence forward round
 #: bf16 activations at different points through 28 layers, and bf16 logits
 #: near 4 are 0.03 apart, so near-ties may fall either way.
 MARGIN = 0.1
+#: bf16 falcon-mamba-7b: most that bf16 forward, the bf16 serving path and
+#: float32 forward of the same weights may differ by in the logits. The
+#: bf16 paths round at different points (cuBLAS takes other kernels for 1-4
+#: decode rows than for a 64- or 215-row pass) and 64 layers carry that to
+#: differences of up to ~0.3 between them; a dtype fault (a float32 leaf
+#: cast to bf16, a state kept in bf16) moves them further.
+BF16_LOGIT_TOL = 0.5
 SEED = 0
 
 
@@ -77,7 +109,8 @@ def require(cond: bool, msg: str) -> None:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile-rungs", action="store_true",
-                    help="also profile a serving run of each quantized rung")
+                    help="also profile a serving run of each quantized "
+                         "rung and of falcon-mamba-7b")
     profile_rungs = ap.parse_args().profile_rungs
     import torch
     if not torch.cuda.is_available():
@@ -93,6 +126,7 @@ def main() -> int:
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import gemm as gm
     from repro_torch.kernels import gemm_wq as wq
+    from repro_torch.kernels import lru_scan as lru
     from repro_torch.kernels import paged_attention as pa
     from repro_torch.models import (decode_step, extend_step, forward, init,
                                     logits_fn)
@@ -140,17 +174,17 @@ def main() -> int:
         torch.cuda.synchronize()
         return sum(s.elapsed_time(e) for s, e in pairs) / reps
 
-    def compare(name, got, want):
+    def compare(name, got, want, tol=ATOL):
         err = (got.float() - want.float()).abs()
-        ok = bool((err <= ATOL + RTOL * want.float().abs()).all())
+        ok = bool((err <= tol + tol * want.float().abs()).all())
         require(bool(torch.isfinite(got.float()).all()) and ok,
                 f"{name}: kernel disagrees with its plain version "
                 f"(max_abs_err {err.max().item():.3e})")
         return err.max().item()
 
-    def bound(n_bytes, n_flops):
+    def bound(n_bytes, n_flops, flop_per_s=BF16_FLOP_PER_S):
         t_bytes = n_bytes / MEM_BYTES_PER_S * 1e3
-        t_ops = n_flops / BF16_FLOP_PER_S * 1e3
+        t_ops = n_flops / flop_per_s * 1e3
         return ((t_bytes, "bytes") if t_bytes >= t_ops
                 else (t_ops, "operations"))
 
@@ -281,7 +315,31 @@ def main() -> int:
             shape=f"BH={BH} BK={BK} S={S} D={D} causal bf16", ms=ms,
             plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
             bound_by=b_by, max_abs_err=err)
-    del flush
+
+    # lru_scan at falcon-mamba-7b's shapes: one extend_step chunk of 64
+    # tokens (the serving path) and one forward of 215 tokens, over
+    # d_inner * d_state = 8192 * 16 channels; and a ragged shape. a in
+    # (0.5, 1) as exp(dt * A) is. No PyTorch call computes the recurrence.
+    fm = get_arch("falcon-mamba-7b")
+    D_ssm = fm.d_inner * fm.ssm.d_state
+    for B_, L_, D_ in ((1, 64, D_ssm), (1, 215, D_ssm), (3, 37, 1000)):
+        a = torch.rand((B_, L_, D_), generator=gen, device=dev) * 0.5 + 0.5
+        b = torch.randn((B_, L_, D_), generator=gen, device=dev)
+        err = compare(f"lru_scan B={B_} L={L_} D={D_}",
+                      lru.lru_scan_cuda(a, b), ref.lru_scan_ref(a, b),
+                      tol=LRU_TOL)
+        ms = cold_ms(lambda: lru.lru_scan_cuda(a, b))
+        plain_ms = cold_ms(lambda: ref.lru_scan_ref(a, b), reps=10)
+        b_ms, b_by = bound(3 * 4 * a.numel(), 2 * a.numel(), F32_FLOP_PER_S)
+        print(f"[kernel] lru_scan B={B_} L={L_} D={D_} float32: "
+              f"max_abs_err={err:.3e} ms={ms:.4f} plain_ms={plain_ms:.4f} "
+              f"library_ms=None bound_ms={b_ms:.4f} ({b_by})")
+        if (B_, L_) == (1, 64):
+            entries["lru_scan"] = dict(
+                shape=f"B={B_} L={L_} D={D_} float32", ms=ms,
+                plain_ms=plain_ms, library_ms=None, bound_ms=b_ms,
+                bound_by=b_by, max_abs_err=err)
+    del flush, a, b
 
     # ---- 4. serve full-width qwen3-0.6b --------------------------------
     t0 = time.perf_counter()
@@ -303,26 +361,27 @@ def main() -> int:
     L = cfg.n_layers
     n_new = 16 * len(reqs)
 
-    def serve(cfg_x, params_x, label, want):
-        """Serve the trace once after a warm-up, launch counts set to 0 just
-        before and read just after; ``want(steps, chunks)`` gives the
-        counts the path must show."""
-        ServeEngine(cfg_x, params_x, **engine_kw).run(reqs[:2])  # warm-up
+    def serve(cfg_x, params_x, label, want, reqs_x=None):
+        """Serve the trace (``reqs_x``, default ``reqs``) once after a
+        warm-up, launch counts set to 0 just before and read just after;
+        ``want(steps, chunks)`` gives the counts the path must show."""
+        reqs_x = reqs_x or reqs
+        ServeEngine(cfg_x, params_x, **engine_kw).run(reqs_x[:2])  # warm-up
         engine = ServeEngine(cfg_x, params_x, **engine_kw)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         for k in ops.KERNELS:
             k.launches = 0
         t0 = time.perf_counter()
-        results = engine.run(reqs)
+        results = engine.run(reqs_x)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         counts = {k.name: k.launches for k in ops.KERNELS}
         steps = engine.stats["decode_steps"]
         chunks = engine.stats["prefill_chunks"]
-        for req, res in zip(reqs, results):
+        for req, res in zip(reqs_x, results):
             require(res.finish_reason == "length" and len(res.tokens) == 16
-                    and all(0 <= t < cfg.vocab_size for t in res.tokens),
+                    and all(0 <= t < cfg_x.vocab_size for t in res.tokens),
                     f"{label} request {req.uid}: {res.finish_reason}, "
                     f"{res.tokens}")
         require(engine.allocator.n_free == engine.allocator.capacity,
@@ -334,7 +393,7 @@ def main() -> int:
                 f"{steps} decode steps and {chunks} prefill chunks ({expect})")
         ttft = [r.ttft_s * 1e3 for r in results]
         print(f"[{label}] 8 requests on 4 slots, prompts "
-              f"{[len(r.prompt) for r in reqs]}, 16 new tokens each, page "
+              f"{[len(r.prompt) for r in reqs_x]}, 16 new tokens each, page "
               f"16, chunk 64: {n_new} tokens in {wall:.3f} s = "
               f"{n_new / wall:.1f} tok/s; TTFT mean {np.mean(ttft):.1f} ms, "
               f"max {max(ttft):.1f} ms; {steps} decode steps, {chunks} "
@@ -342,26 +401,32 @@ def main() -> int:
               f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
         return engine, results, counts
 
-    def hold(lg, served, what):
-        """The margin rule: each served token's logit within MARGIN of the
-        best, and the argmax where the top-1/top-2 gap exceeds MARGIN.
-        Returns (argmax hits, gated steps, worst gap)."""
-        require(lg.shape == (16, cfg.vocab_size)
-                and bool(torch.isfinite(lg).all()), f"{what}: logits")
+    def margin(lg, served, vocab):
+        """Per served token (one row of ``lg`` each): how far its logit is
+        below the best, and whether the step is decided (top-1/top-2 gap
+        over MARGIN)."""
+        require(lg.shape == (16, vocab) and bool(torch.isfinite(lg).all()),
+                f"logits of shape {tuple(lg.shape)}, or not finite")
         top2 = lg.topk(2, dim=-1).values
         served = torch.as_tensor(served, device=dev)
         gap = top2[:, 0] - lg.gather(1, served[:, None])[:, 0]
-        decided = (top2[:, 0] - top2[:, 1]) > MARGIN
+        return gap, (top2[:, 0] - top2[:, 1]) > MARGIN
+
+    def hold(lg, served, what, vocab=cfg.vocab_size):
+        """The margin rule: each served token's logit within MARGIN of the
+        best, and the argmax where the top-1/top-2 gap exceeds MARGIN.
+        Returns (argmax hits, gated steps, worst gap)."""
+        gap, decided = margin(lg, served, vocab)
         require(bool((gap <= MARGIN).all()), f"{what}: a served token is "
                 f"{gap.max().item():.4f} below the reference's best")
         require(bool((gap[decided] == 0).all()),
                 f"{what}: served token differs from the clear argmax")
         return int((gap == 0).sum()), int(decided.sum()), gap.max().item()
 
-    def forward_logits(params_x, req, tokens):
+    def forward_logits(params_x, req, tokens, cfg_x=cfg):
         seq = np.concatenate([req.prompt, tokens[:-1]])
-        lg = logits_fn(params_x, cfg, forward(
-            params_x, cfg, torch.as_tensor(seq, device=dev)[None]))
+        lg = logits_fn(params_x, cfg_x, forward(
+            params_x, cfg_x, torch.as_tensor(seq, device=dev)[None]))
         return lg[0, len(req.prompt) - 1:]
 
     engine, results, serve_counts = serve(
@@ -403,13 +468,13 @@ def main() -> int:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    def profile_serving(cfg_x, params_x, label):
+    def profile_serving(cfg_x, params_x, label, reqs_x=None):
         engine = ServeEngine(cfg_x, params_x, **engine_kw)
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            engine.run(reqs)
+            engine.run(reqs_x or reqs)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
         by_kernel = sorted(((e.self_device_time_total, e.count, e.key)
@@ -500,14 +565,163 @@ def main() -> int:
               f"free-running tokens equal to the bf16 run's {same}/{n_new}")
         del params_dev, replays, rows, lg
 
-    # ---- 8. summary lines ----------------------------------------------
+    # ---- 8. serve full-width falcon-mamba-7b ---------------------------
+    del params_host, q_results
+    gc.collect()
+    torch.cuda.empty_cache()
+    FL = fm.n_layers
+    t0 = time.perf_counter()
+    fparams = init(fm, seed=SEED, device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in fparams["blocks"].values()) + sum(
+        t.numel() for k, t in fparams.items() if k != "blocks")
+    print(f"[serve_falcon_mamba] {fm.name}: {FL} mamba layers, d_model "
+          f"{fm.d_model}, d_inner {fm.d_inner}, d_state {fm.ssm.d_state}, "
+          f"dt_rank {fm.dt_rank}, vocab {fm.vocab_size}; "
+          f"{n_params / 1e9:.3f} B params, drawn from torch.Generator seed "
+          f"{SEED} in {time.perf_counter() - t0:.2f} s; device memory "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated after "
+          f"init")
+    frng = np.random.default_rng(SEED)
+    freqs = [Request(uid=i, prompt=frng.integers(0, fm.vocab_size,
+                                                 int(frng.integers(40, 201))),
+                     max_new_tokens=16) for i in range(8)]
+    chunk = engine_kw["prefill_chunk"]
+    lens = [len(r.prompt) + 15 for r in freqs]
+    # one lru_scan launch per layer per run of up to ssm.chunk tokens: one
+    # per prefill chunk and one per forward
+    require(fm.ssm.chunk >= max(chunk, *lens), "ssm.chunk below a prefill "
+            "chunk or a forward's length")
+    table = torch.zeros((1, 1), dtype=torch.int32, device=dev)
+
+    def replay(cfg_x, params_x, req, tokens):
+        """One request alone through the model-level serving path:
+        ``extend_step`` in the engine's chunks, then ``decode_step`` fed
+        the served tokens, in slot 0. Row i scores the token at
+        len(prompt) + i."""
+        cache = init_cache(cfg_x, 1, 16, dev, slots=1)
+        slot = torch.zeros(1, dtype=torch.long, device=dev)
+        prompt = torch.as_tensor(req.prompt, device=dev)[None]
+        for off in range(0, prompt.shape[1], chunk):
+            last = extend_step(params_x, cfg_x, cache,
+                               prompt[:, off:off + chunk], off, 0, table)
+        rows = [last[0, 0]]
+        for i, tok in enumerate(tokens[:-1]):
+            pos = torch.tensor([prompt.shape[1] + i], device=dev)
+            rows.append(decode_step(params_x, cfg_x, cache,
+                                    torch.tensor([[tok]], device=dev), pos,
+                                    table, slots=slot)[0, 0])
+        return torch.stack(rows)
+
+    def f32(tree):
+        return {k: f32(v) if isinstance(v, dict) else v.float()
+                for k, v in tree.items()}
+
+    fm_counts = {}
+
+    def falcon_pass(cfg_x, params_x, label):
+        """Serve the trace, then ``forward`` on each request with its served
+        tokens appended, each counted; then each request replayed alone.
+        Returns the results, forward's logits and the replays' logits."""
+        engine, res_x, counts = serve(
+            cfg_x, params_x, f"serve_{label}",
+            lambda steps, chunks: {"lru_scan": FL * chunks}, freqs)
+        fm_counts[f"serve_{label}"] = counts
+        print(f"[serve_{label}] launches while serving {counts} (lru_scan "
+              f"{FL} per prefill chunk; decode steps run the recurrence in "
+              f"plain torch); weights "
+              f"{engine.param_bytes / 1e9:.3f} GB, recurrent state of 4 "
+              f"slots {engine.kv_pool_bytes / 1e9:.4f} GB")
+        del engine
+        if profile_rungs:
+            profile_serving(cfg_x, params_x, f"profile_{label}", freqs)
+        for k in ops.KERNELS:
+            k.launches = 0
+        fwd_ms, fwd_rows = [], []
+        for req, res in zip(freqs, res_x):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fwd_rows.append(forward_logits(params_x, req, res.tokens, cfg_x))
+            torch.cuda.synchronize()
+            fwd_ms.append((time.perf_counter() - t0) * 1e3)
+        counts = {k.name: k.launches for k in ops.KERNELS}
+        require(counts == {**{k.name: 0 for k in ops.KERNELS},
+                           "lru_scan": FL * len(freqs)},
+                f"launches in the 8 {label} forward passes {counts}")
+        fm_counts[f"forward_{label}"] = counts
+        print(f"[forward_{label}] 8 teacher-forced passes of "
+              f"{min(lens)}-{max(lens)} tokens, mean {np.mean(fwd_ms):.1f} "
+              f"ms each; launches {counts} (per forward: lru_scan {FL})")
+        rep_rows = [replay(cfg_x, params_x, req, res.tokens)
+                    for req, res in zip(freqs, res_x)]
+        return res_x, fwd_rows, rep_rows
+
+    def hold_all(rows_x, res_x, what):
+        worst, exact, gated = 0.0, 0, 0
+        for req, res, lg in zip(freqs, res_x, rows_x):
+            e, g, w = hold(lg, res.tokens, f"request {req.uid} vs {what}",
+                           fm.vocab_size)
+            exact, gated, worst = exact + e, gated + g, max(worst, w)
+        return (f"exact argmax {exact}/{n_new}, {gated} steps with a "
+                f"top-1/top-2 gap > {MARGIN} all equal, worst gap "
+                f"{worst:.4f} (margin {MARGIN})")
+
+    def apart(rows_a, rows_b):
+        return max((a - b).abs().max().item() for a, b in zip(rows_a, rows_b))
+
+    # bf16. Served tokens hold by the margin rule to each request replayed
+    # alone (extend_step chunks of 64, then decode_step).
+    res_b, fwd_b, rep_b = falcon_pass(fm, fparams, "falcon_mamba")
+    print(f"[falcon_mamba] served tokens vs their replay (gated): "
+          f"{hold_all(rep_b, res_b, 'its replay')}")
+    fexact, fworst = 0, 0.0
+    for res, lg in zip(res_b, fwd_b):
+        gap, _ = margin(lg, res.tokens, fm.vocab_size)
+        fexact, fworst = fexact + int((gap == 0).sum()), max(
+            fworst, gap.max().item())
+    print(f"[falcon_mamba] served tokens vs bf16 forward (reported, not "
+          f"gated): exact argmax {fexact}/{n_new}, worst gap {fworst:.4f}")
+
+    # float32, the same weights: served tokens hold to forward by the rule.
+    fm32 = fm.replace(dtype="float32")
+    params32 = f32(fparams)
+    res_f, fwd_f, rep_f = falcon_pass(fm32, params32, "falcon_mamba_f32")
+    print(f"[falcon_mamba_f32] served tokens vs forward (gated): "
+          f"{hold_all(fwd_f, res_f, 'forward')}; replay vs forward logits "
+          f"max |diff| {apart(rep_f, fwd_f):.3e}")
+
+    # The witness for bf16: float32 forward of the same weights,
+    # teacher-forced on the bf16 served tokens. bf16 forward and the bf16
+    # serving path (its replay) must each lie within BF16_LOGIT_TOL of it,
+    # and within BF16_LOGIT_TOL of each other.
+    wit = [forward_logits(params32, req, res.tokens, fm32)
+           for req, res in zip(freqs, res_b)]
+    pairs = {"forward": (fwd_b, wit), "replay": (rep_b, wit),
+             "replay vs forward": (rep_b, fwd_b)}
+    spread = {k: apart(*v) for k, v in pairs.items()}
+    mean = {k: np.mean([(a - b).abs().mean().item() for a, b in zip(*v)])
+            for k, v in pairs.items()}
+    scale = max(w.abs().max().item() for w in wit)
+    print(f"[falcon_mamba] bf16 logits vs float32 forward of the same "
+          f"weights on the bf16 tokens: max |diff| "
+          + ", ".join(f"{k} {v:.4f}" for k, v in spread.items())
+          + f" (limit {BF16_LOGIT_TOL}); mean |diff| "
+          + ", ".join(f"{k} {v:.5f}" for k, v in mean.items())
+          + f"; float32 logits up to {scale:.3f}")
+    for what, diff in spread.items():
+        require(diff <= BF16_LOGIT_TOL, f"bf16 falcon-mamba {what}: logits "
+                f"{diff:.4f} from the float32 witness, over {BF16_LOGIT_TOL}")
+    del fparams, params32, fwd_b, rep_b, fwd_f, rep_f, wit
+
+    # ---- 9. summary lines ----------------------------------------------
     kernels = []
     root = Path(__file__).resolve().parent
     for k in ops.KERNELS:
         e = entries[k.name]
         by_path = {"serve": serve_counts[k.name],
                    **{lbl: c[k.name] for lbl, c in rung_counts.items()},
-                   "forward": fwd_counts[k.name]}
+                   "forward": fwd_counts[k.name],
+                   **{lbl: c[k.name] for lbl, c in fm_counts.items()}}
         kernels.append({
             "name": k.name, "route": "cuda",
             "source": str(k.source.relative_to(root)),

@@ -1,4 +1,5 @@
 from repro_torch.configs.archs import ARCHS, get_arch, reduced
-from repro_torch.configs.base import LayerSpec, ModelConfig
+from repro_torch.configs.base import LayerSpec, ModelConfig, SSMConfig
 
-__all__ = ["ARCHS", "LayerSpec", "ModelConfig", "get_arch", "reduced"]
+__all__ = ["ARCHS", "LayerSpec", "ModelConfig", "SSMConfig", "get_arch",
+           "reduced"]

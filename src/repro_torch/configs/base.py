@@ -1,9 +1,10 @@
-"""The port's own copy of the ``ModelConfig`` fields the dense decoder reads.
+"""The port's own copy of the ``ModelConfig`` fields the served families read.
 
 Field names, defaults and meanings are those of ``repro.configs.base``
 (``tests/test_torch_model.py`` holds the two against each other), restricted
-to what a dense decoder-only model with full attention needs. Families the
-port does not serve yet have no fields here.
+to what the port serves: dense decoder-only models with full attention, and
+Mamba-1 state-space models (``SSMConfig``). Families the port does not serve
+yet have no fields here.
 """
 from __future__ import annotations
 
@@ -19,9 +20,23 @@ class LayerSpec:
     mlp: str = "dense"
 
 
+#: the layer kinds the port serves; a pattern repeats one of them
+FULL, MAMBA = LayerSpec("full", "dense"), LayerSpec("mamba", "none")
+
+
+@dataclass(frozen=True)
+class SSMConfig:
+    d_state: int = 16
+    d_conv: int = 4
+    expand: int = 2
+    dt_rank: int = 0              # 0 => ceil(d_model / 16)
+    chunk: int = 256              # selective-scan chunk length
+
+
 @dataclass(frozen=True)
 class ModelConfig:
     name: str = "model"
+    family: str = "dense"         # dense | ssm
     n_layers: int = 2
     d_model: int = 256
     n_heads: int = 4
@@ -34,6 +49,8 @@ class ModelConfig:
     attn_scale: float = 0.0       # 0 => 1/sqrt(head_dim)
     qk_norm: bool = False
     rope_theta: float = 10000.0
+    use_rope: bool = True         # rotary positions
+    ssm: SSMConfig | None = None  # set for Mamba-1 layers
     act: str = "silu"             # silu | gelu
     gated_mlp: bool = True
     tie_embeddings: bool = True
@@ -49,13 +66,21 @@ class ModelConfig:
     quant_block: int = 0          # 0 => per-channel; else scale-block length
 
     def __post_init__(self):
-        if any(sp != LayerSpec("full", "dense") for sp in self.pattern):
+        kinds = set(self.pattern)
+        if len(kinds) != 1 or not kinds <= {FULL, MAMBA} or (
+                kinds == {MAMBA} and self.ssm is None):
             raise NotImplementedError(
-                f"{self.name}: the port serves full-attention dense layers "
-                f"only, got pattern {self.pattern}")
+                f"{self.name}: the port serves a repeated full-attention "
+                f"dense layer, or a repeated mamba layer with ssm set; got "
+                f"pattern {self.pattern}")
+        if self.is_ssm and (self.weight_dtype or self.kv_dtype):
+            raise NotImplementedError(
+                f"{self.name}: weight_dtype / kv_dtype on mamba layers; the "
+                "port does not quantize recurrent projections yet")
         if self.act not in ("silu", "gelu"):
             raise ValueError(f"act={self.act!r}; expected silu or gelu")
-        if self.n_heads % self.n_kv_heads:
+        if not self.is_ssm and (self.n_kv_heads < 1
+                                or self.n_heads % self.n_kv_heads):
             raise ValueError("n_heads must be a multiple of n_kv_heads")
         if self.page_size < 1 or self.prefill_chunk < 1:
             raise ValueError("page_size and prefill_chunk must be >= 1")
@@ -76,7 +101,24 @@ class ModelConfig:
 
     @property
     def resolved_head_dim(self) -> int:
-        return self.head_dim or self.d_model // self.n_heads
+        if self.head_dim:
+            return self.head_dim
+        return self.d_model // self.n_heads if self.n_heads else 0
+
+    @property
+    def is_ssm(self) -> bool:
+        """Every layer is a Mamba-1 mixer with no MLP (no attention, no
+        paged KV pools)."""
+        return self.pattern[0] == MAMBA
+
+    @property
+    def d_inner(self) -> int:
+        """Mamba's inner width, ``expand * d_model``."""
+        return self.ssm.expand * self.d_model
+
+    @property
+    def dt_rank(self) -> int:
+        return self.ssm.dt_rank or -(-self.d_model // 16)
 
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)

@@ -41,7 +41,8 @@ def _tensor(a, device: torch.device) -> torch.Tensor:
 
 def convert_params(tree: dict, cfg: ModelConfig, *, device: str = "cuda"
                    ) -> dict:
-    """Reference pytree -> port params, cast once to the compute dtype.
+    """Reference pytree -> port params, cast once to the compute dtype
+    (Mamba's ``dt_proj`` bias, ``A_log`` and ``D`` stay float32).
 
     The reference stacks its repeated layer pattern under
     ``tree["blocks"]`` (a list with one entry per pattern position, each
@@ -51,18 +52,30 @@ def convert_params(tree: dict, cfg: ModelConfig, *, device: str = "cuda"
     dev = resolve(device)
     if "prefix" in tree or "suffix" in tree or len(tree["blocks"]) != 1:
         raise NotImplementedError(
-            "the port converts one stacked full-attention dense pattern "
-            "with no prefix/suffix layers")
+            "the port converts one stacked full-attention dense or mamba "
+            "pattern with no prefix/suffix layers")
 
-    def t(a):
+    def t(a, dtype=cfg.compute_dtype):
         if _is_quant_leaf(a):
             axis = a.axis if a.axis < 0 else a.axis - np.ndim(a.q)
             return QuantTensor(_tensor(a.q, dev), _tensor(a.scales, dev),
                                axis=axis, pack=a.pack)
         a = np.asarray(a).astype(np.float32)
-        return torch.from_numpy(a).to(device=dev, dtype=cfg.compute_dtype)
+        return torch.from_numpy(a).to(device=dev, dtype=dtype)
 
     b = tree["blocks"][0]
+    if cfg.is_ssm:
+        mb = b["mamba"]
+        blocks = {"pre_norm": t(b["pre_norm"]["scale"]),
+                  "in_proj": t(mb["in_proj"]["kernel"]),
+                  "conv": t(mb["conv"]["kernel"]),
+                  "x_proj": t(mb["x_proj"]["kernel"]),
+                  "dt_proj": t(mb["dt_proj"]["kernel"]),
+                  "dt_bias": t(mb["dt_proj"]["bias"], torch.float32),
+                  "A_log": t(mb["A_log"], torch.float32),
+                  "D": t(mb["D"], torch.float32),
+                  "out_proj": t(mb["out_proj"]["kernel"])}
+        return _finish(tree, cfg, blocks, blocks["in_proj"].shape[0], t)
     a, m = b["attn"], b["mlp"]
     blocks = {"pre_norm": t(b["pre_norm"]["scale"]),
               "q_proj": t(a["q_proj"]["kernel"]),
@@ -76,7 +89,11 @@ def convert_params(tree: dict, cfg: ModelConfig, *, device: str = "cuda"
         blocks["k_norm"] = t(a["k_norm"]["scale"])
     if cfg.gated_mlp:
         blocks["gate"] = t(m["gate"]["kernel"])
-    n = blocks["q_proj"].shape[0]
+    return _finish(tree, cfg, blocks, blocks["q_proj"].shape[0], t)
+
+
+def _finish(tree: dict, cfg: ModelConfig, blocks: dict, n: int, t) -> dict:
+    """The converted blocks with the embedding, final norm and head."""
     if n != cfg.n_layers:
         raise ValueError(f"checkpoint has {n} layers, config {cfg.n_layers}")
     params = {"embed": t(tree["embed"]["table"]),

@@ -6,7 +6,8 @@ version in :mod:`repro_torch.kernels.ref`, after the same shape and layout
 checks the kernel's wrapper makes, so CPU runs hold callers to what the
 kernel takes. Counterparts of
 ``repro/kernels/ops.py`` ``gemm`` (:98), ``gemm_wq`` (:181),
-``flash_attention`` (:359) and ``paged_attention`` (:449).
+``flash_attention`` (:359), ``paged_attention`` (:449) and ``lru_scan``
+(:477).
 """
 from __future__ import annotations
 
@@ -15,11 +16,13 @@ import torch
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import gemm as _gemm
 from repro_torch.kernels import gemm_wq as _wq
+from repro_torch.kernels import lru_scan as _lru
 from repro_torch.kernels import paged_attention as _pa
 from repro_torch.kernels import ref
 
 #: the CUDA kernels of the serving paths, each with its ``launches`` count
-KERNELS = (_gemm.KERNEL, _pa.KERNEL, _fa.KERNEL, _wq.KERNEL, _pa.KERNEL_QUANT)
+KERNELS = (_gemm.KERNEL, _pa.KERNEL, _fa.KERNEL, _wq.KERNEL, _pa.KERNEL_QUANT,
+           _lru.KERNEL)
 
 
 def gemm(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor | None = None,
@@ -76,3 +79,12 @@ def paged_attention(q, k_pool, v_pool, block_tables, lengths, k_scale=None,
     _pa.validate(q, k_pool, v_pool, block_tables, lengths, k_scale, v_scale)
     return ref.paged_attention_ref(q, k_pool, v_pool, block_tables, lengths,
                                    k_scale, v_scale, scale=scale, cap=cap)
+
+
+def lru_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """h_t = a_t * h_{t-1} + b_t over axis 1 from a zero state; a, b
+    (B, L, D) float32, contiguous."""
+    if a.is_cuda:
+        return _lru.lru_scan_cuda(a, b)
+    _lru.validate(a, b)
+    return ref.lru_scan_ref(a, b)

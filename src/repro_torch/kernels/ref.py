@@ -1,5 +1,5 @@
 """Plain PyTorch versions of the kernels (``repro/kernels/ref.py`` :8, :23,
-:62, :89).
+:62, :89, :124).
 
 They are what ``kernels/ops.py`` runs on CPU tensors, and what
 ``chip_smoke.py`` holds each CUDA kernel against on the card. Every one
@@ -118,3 +118,15 @@ def paged_attention_ref(q, k_pool, v_pool, block_tables, lengths,
     out = torch.einsum("bkgs,bskd->bkgd", p, vv)
     out = out * (lengths > 0).reshape(B, 1, 1, 1)
     return out.to(q.dtype)
+
+
+def lru_scan_ref(a, b):
+    """Diagonal recurrence h_t = a_t * h_{t-1} + b_t along axis 1 from a
+    zero state, in float32, one step after another. a, b: (B, L, D)."""
+    a, b = a.float(), b.float()
+    h = torch.empty_like(a)
+    carry = torch.zeros_like(a[:, 0])
+    for t in range(a.shape[1]):
+        carry = a[:, t] * carry + b[:, t]
+        h[:, t] = carry
+    return h

@@ -4,11 +4,13 @@
       --requests 8 --slots 4 --max-new 16          # on the card
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-0.6b \
       --weight-dtype int4 --kv-dtype fp8 --quant-block 32   # quantized
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch falcon-mamba-7b
   PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu
 
 Weights are random, drawn from a ``torch.Generator`` seeded by ``--seed``;
 so are the prompts (numpy, same seed). Prints one JSON object, with the
-served weights' bytes and the KV pools' bytes.
+served weights' bytes and the KV pools' bytes (a Mamba model's recurrent
+state bytes).
 """
 from __future__ import annotations
 

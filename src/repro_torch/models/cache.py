@@ -1,4 +1,4 @@
-"""Paged KV pools (``repro/models/cache.py``).
+"""Paged KV pools and per-slot recurrent state (``repro/models/cache.py``).
 
 Every full-attention layer shares one pool of ``n_blocks`` blocks of
 ``page_size`` rows; a slot addresses its rows through its row of the block
@@ -11,6 +11,12 @@ one byte per element plus per-row float16 absmax scales ``k_scale`` and
 ``v_scale`` of shape (layers, n_blocks, page_size, kv heads): writes
 quantize each row, reads dequantize with its scale. The sizing helpers
 count the storage width and the scales.
+
+A Mamba model (``cfg.is_ssm``) has no full-attention layer and so no pools:
+its cache is the dense per-slot state of every layer, ``{"h": (layers,
+slots, d_inner * d_state) float32, "conv": (layers, slots, d_conv - 1,
+d_inner)}`` in the compute dtype, as the reference keeps it beside its pools
+(``cache.py:70-73``).
 """
 from __future__ import annotations
 
@@ -25,11 +31,21 @@ def _pool_dtype(cfg: ModelConfig) -> torch.dtype:
 
 
 def init_cache(cfg: ModelConfig, n_blocks: int, page_size: int,
-               device: torch.device) -> dict[str, torch.Tensor]:
+               device: torch.device, *, slots: int = 0
+               ) -> dict[str, torch.Tensor]:
     """Zeroed pools ``{"k", "v"}`` of shape (layers, n_blocks, page_size,
     kv heads, head dim) in the compute dtype, or in int8 / fp8 codes with
     ``{"k_scale", "v_scale"}`` when ``cfg.kv_dtype`` is set; the leading
-    axis is the stacked ``blocks`` axis of the reference's cache."""
+    axis is the stacked ``blocks`` axis of the reference's cache. A Mamba
+    model gets the zeroed state ``{"h", "conv"}`` of ``slots`` slots
+    instead (``n_blocks`` and ``page_size`` unused)."""
+    if cfg.is_ssm:
+        if slots < 1:
+            raise ValueError("a mamba cache needs slots >= 1")
+        s, L, DI = cfg.ssm, cfg.n_layers, cfg.d_inner
+        return {"h": torch.zeros(L, slots, DI * s.d_state, device=device),
+                "conv": torch.zeros(L, slots, s.d_conv - 1, DI,
+                                    dtype=cfg.compute_dtype, device=device)}
     shape = (cfg.n_layers, n_blocks, page_size, cfg.n_kv_heads,
              cfg.resolved_head_dim)
     dt = _pool_dtype(cfg)
@@ -43,14 +59,17 @@ def init_cache(cfg: ModelConfig, n_blocks: int, page_size: int,
 
 
 def cache_bytes(cache: dict[str, torch.Tensor]) -> int:
-    """Device bytes of the pools, scales included."""
+    """Device bytes of the pools (scales included) or recurrent state."""
     return sum(t.numel() * t.element_size() for t in cache.values())
 
 
 def kv_block_bytes(cfg: ModelConfig, page_size: int) -> int:
     """KV bytes of one pool block summed over the layers, at the pools'
     storage width plus, for quantized pools, two float16 scales per row
-    and head (``repro/models/cache.py:163``)."""
+    and head (``repro/models/cache.py:163``); 0 for a model with no
+    full-attention layer."""
+    if cfg.is_ssm:
+        return 0
     hd, K = cfg.resolved_head_dim, cfg.n_kv_heads
     scale_bytes_row = 2 * SCALE_DTYPE.itemsize if cfg.kv_dtype else 0
     per_row = K * (hd * 2 * _pool_dtype(cfg).itemsize + scale_bytes_row)

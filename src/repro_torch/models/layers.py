@@ -1,4 +1,4 @@
-"""Layer primitives of the dense decoder (``repro/models/layers.py``)."""
+"""Layer primitives of the served models (``repro/models/layers.py``)."""
 from __future__ import annotations
 
 import math
@@ -51,3 +51,25 @@ def apply_mlp(p: dict, x: torch.Tensor, act: str, gated: bool) -> torch.Tensor:
     else:
         h = dense(x, p["up"], act=act)
     return dense(h, p["down"])
+
+
+def causal_conv1d(x: torch.Tensor, w: torch.Tensor,
+                  state: torch.Tensor | None = None,
+                  valid_len: int | None = None
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Depthwise causal convolution (``layers.py:201``): x (B, L, C), w
+    (C, K), ``state`` (B, K-1, C) the inputs before x (zeros if None).
+    Returns (y (B, L, C) in x's dtype, summed in float32, and the new
+    state): the last K-1 inputs, or with ``valid_len`` the K-1 inputs before
+    position ``valid_len`` (only the first ``valid_len`` inputs are real)."""
+    k, L = w.shape[-1], x.shape[-2]
+    if state is None:
+        pad = x.new_zeros(x.shape[:-2] + (k - 1, x.shape[-1]))
+    else:
+        pad = state.to(x.dtype)
+    xp = torch.cat([pad, x], dim=-2)                      # (B, L+K-1, C)
+    y = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+    for i in range(k):
+        y = y + xp[..., i:i + L, :].float() * w[:, i].float()
+    start = L if valid_len is None else valid_len
+    return y.to(x.dtype), xp[..., start:start + k - 1, :]

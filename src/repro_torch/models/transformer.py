@@ -1,4 +1,5 @@
-"""The dense decoder spine (``repro/models/transformer.py``).
+"""The model spine (``repro/models/transformer.py``): a dense decoder, or a
+stack of Mamba-1 blocks (``cfg.is_ssm``).
 
 Parameters are a plain dict of tensors in the compute dtype. Per-layer
 tensors are stacked on a leading ``blocks`` axis, as the reference stacks
@@ -8,6 +9,12 @@ its scanned pattern (``transformer.py:76-114``):
      "blocks": {"pre_norm", "q_proj", "k_proj", "v_proj", "o_proj",
                 ["q_norm", "k_norm"], "mlp_norm", ["gate"], "up", "down"}}
 
+or, for Mamba layers, which have no MLP and no MLP norm,
+
+     "blocks": {"pre_norm", "in_proj", "conv", "x_proj", "dt_proj",
+                "dt_bias", "A_log", "D", "out_proj"}
+
+(``models/recurrent.py``; ``dt_bias``, ``A_log`` and ``D`` stay float32),
 with projection kernels stored (d_in, d_out) and norms computing
 ``x * (1 + scale)``. After ``quant.quantize_params`` the projection kernels
 and the embedding table are :class:`~repro_torch.quant.QuantTensor` objects:
@@ -25,6 +32,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve
 from repro_torch.models import attention as attn
 from repro_torch.models.layers import apply_mlp, apply_norm
+from repro_torch.models.recurrent import mamba_forward
 from repro_torch.quant.tensor import QuantTensor
 
 #: rows of a quantized tied embedding table dequantized at a time by
@@ -35,8 +43,10 @@ HEAD_ROWS = 16384
 def init(cfg: ModelConfig, *, seed: int = 0, device: str = "cuda") -> dict:
     """Random parameters from a seeded ``torch.Generator`` on ``device``:
     the reference's initializers (normal / sqrt(fan_in) kernels and
-    embedding, zero norm scales), drawn in float32 and cast once to the
-    compute dtype. They are not ``jax.random``'s numbers."""
+    embedding, zero norm scales; Mamba's S4D-real ``A_log``, ``D`` = 1 and
+    a ``dt_proj`` bias of -4.6, ``recurrent.py:174-193``), drawn in float32
+    and cast once to the compute dtype. They are not ``jax.random``'s
+    numbers."""
     dev = resolve(device)
     g = torch.Generator(device=dev).manual_seed(seed)
     L, d, hd = cfg.n_layers, cfg.d_model, cfg.resolved_head_dim
@@ -49,6 +59,11 @@ def init(cfg: ModelConfig, *, seed: int = 0, device: str = "cuda") -> dict:
     def zeros(*shape):
         return torch.zeros(shape, device=dev, dtype=cfg.compute_dtype)
 
+    if cfg.is_ssm:
+        blocks = _mamba_init(cfg, normal, dev)
+        blocks["pre_norm"] = zeros(L, d)
+        return {"embed": normal((V, d), d), "final_norm": zeros(d),
+                "blocks": blocks}
     blocks = {"pre_norm": zeros(L, d), "q_proj": normal((L, d, H * hd), d),
               "k_proj": normal((L, d, K * hd), d),
               "v_proj": normal((L, d, K * hd), d),
@@ -67,6 +82,30 @@ def init(cfg: ModelConfig, *, seed: int = 0, device: str = "cuda") -> dict:
     return params
 
 
+def _mamba_init(cfg: ModelConfig, normal, dev: torch.device) -> dict:
+    """The stacked Mamba leaves. Each layer's kernels are drawn in float32
+    and cast on their own, so the float32 temporary is one layer's (a
+    stacked ``in_proj`` of falcon-mamba-7b would be 17 GB in float32)."""
+    L, d, s = cfg.n_layers, cfg.d_model, cfg.ssm
+    DI, N, R = cfg.d_inner, s.d_state, cfg.dt_rank
+
+    def stacked(shape, fan_in):
+        out = torch.empty((L,) + shape, dtype=cfg.compute_dtype, device=dev)
+        for i in range(L):
+            out[i] = normal(shape, fan_in)
+        return out
+
+    A = torch.arange(1, N + 1, dtype=torch.float32, device=dev)
+    return {"in_proj": stacked((d, 2 * DI), d),
+            "conv": stacked((DI, s.d_conv), s.d_conv),
+            "x_proj": stacked((DI, R + 2 * N), DI),
+            "dt_proj": stacked((R, DI), R),
+            "dt_bias": torch.full((L, DI), -4.6, device=dev),
+            "A_log": torch.log(A).expand(L, DI, N).contiguous(),
+            "D": torch.ones(L, DI, device=dev),
+            "out_proj": stacked((DI, d), DI)}
+
+
 def _layers(params: dict):
     """Per-layer views of the stacked ``blocks`` tensors."""
     blocks = params["blocks"]
@@ -75,9 +114,13 @@ def _layers(params: dict):
         yield i, {name: t[i] for name, t in blocks.items()}
 
 
-def _block(lp: dict, cfg: ModelConfig, x: torch.Tensor, attend) -> torch.Tensor:
-    """Pre-norm residual block: attention, then the MLP."""
-    x = x + attend(apply_norm(lp["pre_norm"], x, cfg.norm_eps))
+def _block(lp: dict, cfg: ModelConfig, x: torch.Tensor, mix) -> torch.Tensor:
+    """Pre-norm residual block: the mixer (attention or Mamba), then the
+    MLP; a Mamba layer (``mlp == "none"``) has no MLP
+    (``transformer.py:141-258``)."""
+    x = x + mix(apply_norm(lp["pre_norm"], x, cfg.norm_eps))
+    if cfg.is_ssm:
+        return x
     h = apply_norm(lp["mlp_norm"], x, cfg.norm_eps)
     return x + apply_mlp(lp, h, cfg.act, cfg.gated_mlp)
 
@@ -112,26 +155,57 @@ def logits_fn(params: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
 def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor
             ) -> torch.Tensor:
     """Whole-sequence causal pass, (B, S) ids -> hidden (B, S, d); every
-    layer's attention reads through ``flash_attention`` (``:448``)."""
+    layer's attention reads through ``flash_attention``, every Mamba
+    layer's recurrence runs through ``lru_scan`` from a zero state, one
+    launch per ``ssm.chunk`` tokens (``:448``)."""
     x = embed_tokens(params, cfg, tokens)
     for _, lp in _layers(params):
-        x = _block(lp, cfg, x, lambda h, lp=lp: attn.attention_forward(
-            lp, cfg, h))
+        if cfg.is_ssm:
+            mix = lambda h, lp=lp: mamba_forward(lp, cfg, h)[0]
+        else:
+            mix = lambda h, lp=lp: attn.attention_forward(lp, cfg, h)
+        x = _block(lp, cfg, x, mix)
     return x
+
+
+def _mamba_state_step(lp: dict, cfg: ModelConfig, cache: dict, i: int,
+                      rows, h: torch.Tensor, *, fresh: bool = False,
+                      single_step: bool = False) -> torch.Tensor:
+    """Layer ``i``'s Mamba mixer on h, reading the state of slots ``rows``
+    (a tensor of slot indices, or a slice), or zeros if ``fresh``, and
+    writing the new state back in place."""
+    state = {name: cache[name][i, rows] for name in ("h", "conv")}
+    if fresh:
+        state = {name: torch.zeros_like(t) for name, t in state.items()}
+    out, new = mamba_forward(lp, cfg, h, state=state,
+                             single_step=single_step)
+    for name in ("h", "conv"):
+        cache[name][i, rows] = new[name].to(cache[name].dtype)
+    return out
 
 
 def decode_step(params: dict, cfg: ModelConfig, cache: dict,
                 tokens: torch.Tensor, pos: torch.Tensor,
-                block_tables: torch.Tensor) -> torch.Tensor:
+                block_tables: torch.Tensor,
+                slots: torch.Tensor | None = None) -> torch.Tensor:
     """One decode step for B slots: tokens (B, 1) at positions ``pos``
     (B,), slots' block-table rows (B, P) int32. Writes the pools in place;
-    returns logits (B, 1, V) (``:479``)."""
+    returns logits (B, 1, V) (``:479``). A Mamba model needs ``slots``
+    (B,), the slot index of each row, and reads and writes those state rows
+    of its cache only, so a slot that is not decoding keeps its state (the
+    reference masks the others, ``:133-138``)."""
+    if cfg.is_ssm and slots is None:
+        raise ValueError("a mamba decode step needs the slot of each row")
     x = embed_tokens(params, cfg, tokens)
     for i, lp in _layers(params):
-        pools = {name: t[i] for name, t in cache.items()}
-        x = _block(lp, cfg, x, lambda h, lp=lp, pools=pools:
-                   attn.attention_decode(lp, cfg, h, pools, pos,
-                                         block_tables))
+        if cfg.is_ssm:
+            mix = lambda h, lp=lp, i=i: _mamba_state_step(
+                lp, cfg, cache, i, slots, h, single_step=True)
+        else:
+            pools = {name: t[i] for name, t in cache.items()}
+            mix = lambda h, lp=lp, pools=pools: attn.attention_decode(
+                lp, cfg, h, pools, pos, block_tables)
+        x = _block(lp, cfg, x, mix)
     return logits_fn(params, cfg, x)
 
 
@@ -140,11 +214,19 @@ def extend_step(params: dict, cfg: ModelConfig, cache: dict,
                 block_tables: torch.Tensor) -> torch.Tensor:
     """Chunked prefill of slot ``slot``: tokens (1, T) at positions
     ``pos .. pos+T-1``. Writes the pools in place; returns the logits
-    (1, 1, V) of the chunk's last token (``:512``)."""
+    (1, 1, V) of the chunk's last token (``:512``). A Mamba layer carries
+    the slot's state from the previous chunk, and starts it from zero on
+    the first chunk (``pos == 0``), so a reused slot keeps nothing of its
+    last request (``transformer.py:198-206``)."""
     x = embed_tokens(params, cfg, tokens)
     table = block_tables[slot]
     for i, lp in _layers(params):
-        pools = {name: t[i] for name, t in cache.items()}
-        x = _block(lp, cfg, x, lambda h, lp=lp, pools=pools:
-                   attn.attention_extend(lp, cfg, h, pools, pos, table))
+        if cfg.is_ssm:
+            mix = lambda h, lp=lp, i=i: _mamba_state_step(
+                lp, cfg, cache, i, slice(slot, slot + 1), h, fresh=pos == 0)
+        else:
+            pools = {name: t[i] for name, t in cache.items()}
+            mix = lambda h, lp=lp, pools=pools: attn.attention_extend(
+                lp, cfg, h, pools, pos, table)
+        x = _block(lp, cfg, x, mix)
     return logits_fn(params, cfg, x[:, -1:])

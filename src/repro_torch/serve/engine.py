@@ -16,6 +16,13 @@ With ``cfg.weight_dtype`` set the engine quantizes the weights it is given
 (``quant.quantize_params``), as the reference engine does at init; with
 ``cfg.kv_dtype`` set its pools hold int8 or fp8 codes with per-row scales.
 
+A model whose KV block holds no bytes (``kv_block_bytes`` 0: a Mamba
+model) has no pages to give: its cache is each slot's recurrent state
+(``models/cache.py``), so admission needs only a free slot
+and ``prompt + budget <= max_len``, the slot's state starts from zero at its
+first prefill chunk (``extend_step`` at position 0), and each decode step
+gathers and scatters the decoding slots' state rows by slot index.
+
 Not ported yet (``ROADMAP.md``): prefix caching, preemption, overlapped
 decode, priority scheduling, temperature sampling, speculative decoding and
 forks, sharded pools, telemetry.
@@ -33,7 +40,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve
 from repro_torch.models import decode_step, extend_step
 from repro_torch.models.cache import (cache_bytes, default_n_blocks,
-                                      init_cache, pages_per_slot)
+                                      init_cache, kv_block_bytes,
+                                      pages_per_slot)
 from repro_torch.quant.params import param_bytes, quantize_params
 
 #: Slot lifecycle: FREE -> PREFILL (chunked) -> DECODE -> FREE.
@@ -114,11 +122,14 @@ class ServeEngine:
         self.max_slots, self.max_len, self.eos_id = max_slots, max_len, eos_id
         self.page_size = page_size or cfg.page_size
         self.prefill_chunk = prefill_chunk or cfg.prefill_chunk
-        n_blocks = max_blocks or default_n_blocks(max_slots, max_len,
-                                                  self.page_size)
+        #: whether a sequence takes pool pages (not so for a Mamba model)
+        self.paged = kv_block_bytes(cfg, self.page_size) > 0
+        n_blocks = max_blocks or (default_n_blocks(
+            max_slots, max_len, self.page_size) if self.paged else 1)
         self.allocator = BlockAllocator(n_blocks, self.page_size)
         self.n_pages = pages_per_slot(max_len, self.page_size)
-        self.cache = init_cache(cfg, n_blocks, self.page_size, self.device)
+        self.cache = init_cache(cfg, n_blocks, self.page_size, self.device,
+                                slots=max_slots)
         #: block tables, host copy and device copy, kept equal row by row
         self.block_tables = np.zeros((max_slots, self.n_pages), np.int32)
         self._tables = torch.zeros((max_slots, self.n_pages),
@@ -141,7 +152,8 @@ class ServeEngine:
 
     @property
     def kv_pool_bytes(self) -> int:
-        """Device bytes of the KV pools, scales included."""
+        """Device bytes of the KV pools, scales included (of the recurrent
+        state for a Mamba model)."""
         return cache_bytes(self.cache)
 
     # ---- requests ------------------------------------------------------
@@ -192,7 +204,7 @@ class ServeEngine:
                                   "token id outside [0, "
                                   f"{self.cfg.vocab_size})")
                 continue
-            need = self.allocator.pages_for(n_tokens)
+            need = self.allocator.pages_for(n_tokens) if self.paged else 0
             if n_tokens > self.max_len or need > self.allocator.capacity:
                 self.queue.popleft()
                 self._reject(req, f"prompt+budget {n_tokens} tokens exceeds "
@@ -241,7 +253,7 @@ class ServeEngine:
         pos = torch.as_tensor(self.slot_pos[slots], device=dev)
         idx = torch.as_tensor(slots, device=dev)
         logits = decode_step(self.params, self.cfg, self.cache, tokens, pos,
-                             self._tables[idx])
+                             self._tables[idx], slots=idx)
         ids = logits[:, 0].argmax(-1).cpu().tolist()
         self.stats["decode_steps"] += 1
         self.slot_pos[slots] += 1

@@ -10,7 +10,9 @@ at ragged shapes; outputs are compared at atol/rtol 2e-2 (a little over one
 bf16 rounding step of the outputs, whose magnitudes stay below ~2). The
 quantized kernels are held to their plain versions on the same codes and
 scales: ``gemm_wq`` rounds each dequantized weight to bf16 once, as a bf16
-weight is rounded, which stays inside the same tolerance.
+weight is rounded, which stays inside the same tolerance. ``lru_scan`` is
+float32 and is held at atol/rtol 1e-5: it does the plain version's rounded
+multiply and add per step, in the same order.
 """
 from __future__ import annotations
 
@@ -22,6 +24,7 @@ import torch
 from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import gemm as tgemm
 from repro_torch.kernels import gemm_wq as twq
+from repro_torch.kernels import lru_scan as tlru
 from repro_torch.kernels import paged_attention as tpa
 from repro_torch.kernels import ref
 from repro_torch.quant import quantize_kv, quantize_weight
@@ -137,3 +140,18 @@ def test_cuda_paged_attention_quant_matches_plain(cuda, dtype, D, G, page):
             tpa.paged_attention_cuda(*args, cap=cap).float(),
             ref.paged_attention_ref(*args, cap=cap).float(),
             atol=2e-2, rtol=2e-2)
+
+
+# --------------------------------------------------------------------------
+# lru_scan: the extend_step chunk and the forward pass of falcon-mamba-7b
+# (D = 8192 * 16), and a ragged shape
+# --------------------------------------------------------------------------
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,L,D", [(1, 64, 131072), (1, 215, 131072),
+                                   (3, 37, 1000)])
+def test_cuda_lru_scan_matches_plain(cuda, B, L, D):
+    g = torch.Generator(device=cuda).manual_seed(5)
+    a = torch.rand((B, L, D), generator=g, device=cuda) * 0.5 + 0.5
+    b = torch.randn((B, L, D), generator=g, device=cuda)
+    torch.testing.assert_close(tlru.lru_scan_cuda(a, b),
+                               ref.lru_scan_ref(a, b), atol=1e-5, rtol=1e-5)

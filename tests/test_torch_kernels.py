@@ -11,9 +11,18 @@ mirror. ``test_torch_cuda.py`` runs the CUDA kernels themselves.
 Tolerances: float32 inputs agree to atol/rtol 1e-5 (only the summation
 order differs); bf16 inputs give bf16 outputs, compared at atol/rtol 2e-2,
 a little over one bf16 rounding step of values up to ~2.
+
+The JAX plain versions and kernels run under ``jax.jit``, compiled once per
+shape and option at XLA's backend optimisation level 0 (which compiles
+the small test graphs several times faster and computes the same float
+operations); a kernel's ``use_backend("interpret")`` scope is entered
+inside the jitted function, so it is part of what is traced.
 """
 from __future__ import annotations
 
+import functools
+
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -29,6 +38,38 @@ from repro_torch.kernels import paged_attention as tpa
 from repro_torch.models.cache import page_rows
 
 TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+#: XLA compile options of the references (see the module docstring)
+FAST_COMPILE = {"xla_backend_optimization_level": 0}
+
+
+def _jit(*static):
+    return functools.partial(jax.jit, static_argnames=static,
+                             compiler_options=FAST_COMPILE)
+
+
+@_jit("scale", "act")
+def _jgemm(x, w, bias=None, scale=1.0, act=None):
+    """JAX's plain gemm and the Pallas kernel in interpret mode, compiled
+    together."""
+    want = jref.gemm_ref(x, w, bias=bias, scale=scale, act=act)
+    with use_backend("interpret"):
+        return want, jops.gemm(x, w, bias, scale=scale, act=act)
+
+
+@_jit("causal", "window", "cap")
+def _jflash(q, k, v, causal, window, cap):
+    kw = dict(causal=causal, window=window, cap=cap)
+    want = jref.flash_attention_ref(q, k, v, **kw)
+    with use_backend("interpret"):
+        return want, jops.flash_attention(q, k, v, **kw)
+
+
+@_jit("cap")
+def _jpaged(q, kp, vp, tables, lengths, cap):
+    want = jref.paged_attention_ref(q, kp, vp, tables, lengths, cap=cap)
+    with use_backend("interpret"):
+        return want, jops.paged_attention(q, kp, vp, tables, lengths,
+                                          cap=cap)
 
 
 def _pair(a: np.ndarray, dtype: str):
@@ -55,9 +96,9 @@ def test_gemm_plain_matches_jax(m, k, n, dtype):
     w, jw = _pair(rng.standard_normal((k, n)) * 0.5, dtype)
     got = ops.gemm(x, w)
     assert got.dtype == x.dtype and got.shape == (m, n)
-    _close(got, jref.gemm_ref(jx, jw), dtype)
-    with use_backend("interpret"):
-        _close(got, jops.gemm(jx, jw), dtype)
+    want, kernel = _jgemm(jx, jw)
+    _close(got, want, dtype)
+    _close(got, kernel, dtype)
 
 
 @pytest.mark.parametrize("act", [None, "silu", "gelu"])
@@ -67,10 +108,9 @@ def test_gemm_epilogue_matches_jax(act):
     w, jw = _pair(rng.standard_normal((48, 40)), "float32")
     b, jb = _pair(rng.standard_normal(40), "float32")
     got = ops.gemm(x, w, b, scale=0.125, act=act)
-    _close(got, jref.gemm_ref(jx, jw, bias=jb, scale=0.125, act=act),
-           "float32")
-    with use_backend("interpret"):
-        _close(got, jops.gemm(jx, jw, jb, scale=0.125, act=act), "float32")
+    want, kernel = _jgemm(jx, jw, jb, scale=0.125, act=act)
+    _close(got, want, "float32")
+    _close(got, kernel, "float32")
 
 
 @pytest.mark.parametrize("M,N", [(1, 1), (4, 3072), (64, 1024), (65, 63)])
@@ -107,9 +147,9 @@ def test_flash_attention_plain_matches_jax(causal, window, cap, dtype):
     kw = dict(causal=causal, window=window, cap=cap)
     got = ops.flash_attention(q, k, v, **kw)
     assert got.dtype == q.dtype and got.shape == (BH, S, D)
-    _close(got, jref.flash_attention_ref(jq, jk, jv, **kw), dtype)
-    with use_backend("interpret"):
-        _close(got, jops.flash_attention(jq, jk, jv, **kw), dtype)
+    want, kernel = _jflash(jq, jk, jv, **kw)
+    _close(got, want, dtype)
+    _close(got, kernel, dtype)
 
 
 def test_flash_attention_kv_len_masks_padded_keys():
@@ -178,11 +218,11 @@ def test_paged_attention_plain_matches_jax(dtype, cap):
     live = np.asarray(args[4]) > 0
     # repro's gather oracle averages the null block on an empty slot; the
     # kernels (Pallas and CUDA) and the port's plain version return zeros
-    want = np.asarray(jref.paged_attention_ref(*jargs, cap=cap), np.float32)
+    want, kernel = _jpaged(*jargs, cap=cap)
+    want = np.asarray(want, np.float32)
     _close(got[live], want[live], dtype)
     assert not got[~live].any()
-    with use_backend("interpret"):
-        _close(got, jops.paged_attention(*jargs, cap=cap), dtype)
+    _close(got, kernel, dtype)
 
 
 def test_pages_to_read_is_the_page_skip_predicate():

@@ -63,6 +63,32 @@ ATOL = 1e-4
 SMALL = dict(n_layers=2, d_model=64, n_heads=4, n_kv_heads=2, head_dim=16,
              d_ff=128, vocab_size=256, dtype="float32")
 RUNGS = [("int8", "int8"), ("int4", "fp8")]
+#: XLA compile options of the JAX references: backend optimisation level 0
+#: compiles these small graphs several times faster and computes the same
+#: float operations (the quantizers still agree bit for bit)
+FAST_COMPILE = {"xla_backend_optimization_level": 0}
+
+
+@functools.partial(jax.jit, static_argnames=("act", "kernel"),
+                   compiler_options=FAST_COMPILE)
+def _jgemm_wq(x, q, s, b, *, act, kernel):
+    """The JAX plain gemm_wq, or (``kernel``) the Pallas kernel in
+    interpret mode, scope entered inside the jitted function."""
+    if not kernel:
+        return jref.gemm_wq_ref(x, q, s, bias=b, scale=0.5, act=act)
+    with use_backend("interpret"):
+        return jops.gemm_wq(x, q, s, b, scale=0.5, act=act)
+
+
+@functools.partial(jax.jit, static_argnames=("cap", "kernel"),
+                   compiler_options=FAST_COMPILE)
+def _jpaged(*args, cap, kernel):
+    """The JAX plain paged_attention, or (``kernel``) _pa_kernel_quant in
+    interpret mode."""
+    if not kernel:
+        return jref.paged_attention_ref(*args, cap=cap)
+    with use_backend("interpret"):
+        return jops.paged_attention(*args, cap=cap)
 
 
 def _np(x) -> np.ndarray:
@@ -103,7 +129,8 @@ class _Model:
 
     def __init__(self):
         jcfg, cfg = _quant_cfgs("")
-        self.jparams = jax.jit(jinit, static_argnums=1)(
+        self.jparams = jax.jit(jinit, static_argnums=1,
+                               compiler_options=FAST_COMPILE)(
             jax.random.PRNGKey(0), jcfg)
         self.params = convert_params(jax.tree.map(np.asarray, self.jparams),
                                      cfg, device="cpu")
@@ -112,8 +139,8 @@ class _Model:
     def quantized(self, dtype):
         if dtype not in self._trees:
             jcfg, cfg = _quant_cfgs(dtype)
-            jq = jax.jit(lambda p: jquant.quantize_params(p, jcfg))(
-                self.jparams)
+            jq = jax.jit(lambda p: jquant.quantize_params(p, jcfg),
+                         compiler_options=FAST_COMPILE)(self.jparams)
             self._trees[dtype] = (jq, quant.quantize_params(self.params,
                                                             cfg))
         return self._trees[dtype]
@@ -141,14 +168,16 @@ def _weights() -> np.ndarray:
 
 #: the reference quantizer and its inverse compiled whole, once per
 #: configuration, rather than op by op (the same XLA ops either way)
-@functools.partial(jax.jit, static_argnames=("dtype", "block", "axis"))
+@functools.partial(jax.jit, static_argnames=("dtype", "block", "axis"),
+                   compiler_options=FAST_COMPILE)
 def _jquantize_weight(w, dtype, block, axis):
     q, s = jquant.quantize_weight(w, dtype, block=block, axis=axis)
     pack = 2 if dtype == "int4" else 1
     return q, s, jquant.dequantize_weight(q, s, axis=axis, pack=pack)
 
 
-@functools.partial(jax.jit, static_argnames="dtype")
+@functools.partial(jax.jit, static_argnames="dtype",
+                   compiler_options=FAST_COMPILE)
 def _jquantize_kv(x, dtype):
     q, s = jquant.quantize_kv(x, dtype)
     return q, s, jquant.dequantize_kv(q, s)
@@ -232,11 +261,9 @@ def test_gemm_wq_plain_matches_jax(dtype, block, act, bias):
     got = ops.gemm_wq(torch.from_numpy(x), q, s, tb, scale=0.5, act=act)
     assert got.shape == (M, N) and got.dtype == torch.float32
     jx = jnp.asarray(x)
-    want = jax.jit(lambda *a: jref.gemm_wq_ref(*a, scale=0.5, act=act))(
-        jx, jq, js, jb)
+    want = _jgemm_wq(jx, jq, js, jb, act=act, kernel=False)
     np.testing.assert_allclose(got.numpy(), _np(want), atol=TOL, rtol=TOL)
-    with use_backend("interpret"):       # the Pallas gemm_wq kernel
-        want = jops.gemm_wq(jx, jq, js, jb, scale=0.5, act=act)
+    want = _jgemm_wq(jx, jq, js, jb, act=act, kernel=True)
     np.testing.assert_allclose(got.numpy(), _np(want), atol=TOL, rtol=TOL)
 
 
@@ -292,13 +319,11 @@ def test_paged_attention_quant_plain_matches_jax(dtype, cap):
     got = ops.paged_attention(*targs, cap=cap)
     assert got.shape == (B, K, G, D) and got.dtype == torch.float32
     live = lengths > 0
-    want = _np(jax.jit(lambda *a: jref.paged_attention_ref(*a, cap=cap))(
-        *jargs))
+    want = _np(_jpaged(*jargs, cap=cap, kernel=False))
     np.testing.assert_allclose(got.numpy()[live], want[live], atol=TOL,
                                rtol=TOL)
     assert not got[~torch.from_numpy(live)].any()
-    with use_backend("interpret"):       # _pa_kernel_quant
-        want = jops.paged_attention(*jargs, cap=cap)
+    want = _jpaged(*jargs, cap=cap, kernel=True)   # _pa_kernel_quant
     np.testing.assert_allclose(got.numpy(), _np(want), atol=TOL, rtol=TOL)
     with pytest.raises(ValueError, match="k_scale"):
         ops.paged_attention(*targs[:5])
@@ -354,8 +379,8 @@ def test_quantized_logits_match_jax_forward(model, dtype):
     jcfg, cfg = _quant_cfgs(dtype)
     toks = np.random.default_rng(6).integers(0, 256, (2, 9)).astype(np.int32)
     jq, mine = model.quantized(dtype)
-    want = jax.jit(lambda p, t: jlogits_fn(p, jcfg, jforward(p, jcfg, t)[0]))(
-        jq, jnp.asarray(toks))
+    want = jax.jit(lambda p, t: jlogits_fn(p, jcfg, jforward(p, jcfg, t)[0]),
+                   compiler_options=FAST_COMPILE)(jq, jnp.asarray(toks))
     got = logits_fn(mine, cfg, forward(mine, cfg,
                                        torch.from_numpy(toks).long()))
     np.testing.assert_allclose(got.numpy(), _np(want), atol=ATOL)

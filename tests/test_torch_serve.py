@@ -10,8 +10,12 @@ the following steps. At every step the port's token must be within MARGIN
 of the reference's best logit, and must equal the reference's argmax
 wherever the reference's top-1/top-2 gap exceeds MARGIN. MARGIN = 1e-3 is
 ten times the float32 logit tolerance of ``test_torch_model.py`` (1e-4).
+The reference's ``init``, ``forward`` and ``decode_step`` run under
+``jax.jit``, compiled once per shape.
 """
 from __future__ import annotations
+
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -31,6 +35,10 @@ from repro_torch.convert import convert_params
 from repro_torch.serve import Request, ServeEngine
 
 MARGIN = 1e-3
+#: XLA compile options of the JAX references: backend optimisation level 0
+#: compiles these small graphs several times faster and computes the same
+#: float operations
+FAST_COMPILE = {"xla_backend_optimization_level": 0}
 SMALL = dict(n_layers=2, d_model=64, n_heads=4, n_kv_heads=2, head_dim=16,
              d_ff=128, vocab_size=256, dtype="float32")
 ENGINE = dict(max_slots=3, max_len=32, page_size=8, prefill_chunk=6,
@@ -41,7 +49,8 @@ ENGINE = dict(max_slots=3, max_len=32, page_size=8, prefill_chunk=6,
 def model():
     jcfg = jreduced(jget_arch("qwen3-0.6b")).replace(**SMALL)
     cfg = reduced(get_arch("qwen3-0.6b")).replace(**SMALL)
-    jparams = jinit(jax.random.PRNGKey(0), jcfg)
+    jparams = jax.jit(jinit, static_argnums=1, compiler_options=FAST_COMPILE)(
+        jax.random.PRNGKey(0), jcfg)
     params = convert_params(jax.tree.map(np.asarray, jparams), cfg,
                             device="cpu")
     return jcfg, cfg, jparams, params
@@ -54,23 +63,31 @@ def _requests(n, seed, lo=3, hi=14, new_lo=2, new_hi=7):
             for i in range(n)]
 
 
-_jdecode = jax.jit(jdecode_step, static_argnums=1)
+_jdecode = jax.jit(jdecode_step, static_argnums=1,
+                   compiler_options=FAST_COMPILE)
+
+
+@functools.partial(jax.jit, static_argnums=1, compiler_options=FAST_COMPILE)
+def _jprefill(jparams, jcfg, prompt, cache):
+    """``forward`` over the prompt into the cache, and the logits of its
+    last token."""
+    hidden, cache, _ = jforward(jparams, jcfg, prompt[None], cache=cache)
+    return jlogits_fn(jparams, jcfg, hidden[:, -1:])[0, 0], cache
 
 
 def _reference_logits(jcfg, jparams, prompt, tokens):
     """Reference logits before each served token, teacher-forced on the
     served tokens: row i scores the token at position len(prompt) + i."""
     cache = jinit_cache(jcfg, 1, ENGINE["max_len"])
-    hidden, cache, _ = jforward(jparams, jcfg,
-                                jnp.asarray(prompt, jnp.int32)[None],
-                                cache=cache)
-    rows = [jlogits_fn(jparams, jcfg, hidden[:, -1:])[0, 0]]
+    row, cache = _jprefill(jparams, jcfg, jnp.asarray(prompt, jnp.int32),
+                           cache)
+    rows = [np.asarray(row, np.float32)]
     for i, tok in enumerate(tokens[:-1]):
         lg, cache = _jdecode(jparams, jcfg, cache,
-                                 jnp.asarray([[tok]], jnp.int32),
-                                 jnp.asarray(len(prompt) + i, jnp.int32))
-        rows.append(lg[0, 0])
-    return np.asarray(jnp.stack(rows), np.float32)
+                             jnp.asarray([[tok]], jnp.int32),
+                             jnp.asarray(len(prompt) + i, jnp.int32))
+        rows.append(np.asarray(lg, np.float32)[0, 0])
+    return np.stack(rows)
 
 
 def _assert_leak_free(engine):
