@@ -6,13 +6,15 @@
 Phases, each fatal on failure (nothing is caught):
 
 1. print the card's name and power limit (``nvidia-smi``);
-2. build the six CUDA kernels from ``src/repro_torch/kernels/csrc/``, one
+2. build the seven CUDA kernels from ``src/repro_torch/kernels/csrc/``, one
    ``nvcc`` each, all started together, and print their registers, spills
    and shared memory;
 3. hold each kernel against its plain PyTorch version at the full-width
    shapes of qwen3-0.6b's serving path (``lru_scan`` at falcon-mamba-7b's:
    an ``extend_step`` chunk of 64 and a ``forward`` of 215 tokens over
-   D = 8192 * 16 channels, and a ragged shape), and time kernel, plain
+   D = 8192 * 16 channels, and a ragged shape; ``packed_gather_rows``
+   bit-exact at qwen2-moe-a2.7b's decode and prefill-chunk token streams
+   and a ragged float32 shape), and time kernel, plain
    version and, where one PyTorch call computes the same function, that
    call. Every
    timed call starts with a cold L2 cache: a 512 MiB buffer is rewritten
@@ -61,7 +63,23 @@ Phases, each fatal on failure (nothing is caught):
    reported, not gated: the two bf16 paths round at different points and
    64 layers carry that to logit differences of up to ~0.3, over the
    margin, while in float32 the two agree to ~1e-4;
-9. print the ``kernels`` JSON line, then the result line.
+9. free falcon-mamba-7b's weights, then serve the same kind of trace with
+   full-width qwen2-moe-a2.7b (24 layers of full attention and a MoE MLP:
+   60 experts of width 1408, top 4, a gated shared expert of width 5632;
+   random bf16 weights from a seeded ``torch.Generator``), counted the same
+   way: ``packed_gather_rows`` and ``gemm`` must have run 24 and 72 times
+   per prefill chunk and decode step, ``paged_attention`` 24 times per
+   decode step, and nothing else. Expert capacity depends on which rows
+   route together, so the gates are: every served token holds by the
+   margin rule to the engine's recorded steps replayed through
+   ``extend_step`` / ``decode_step`` with the same row sets; and layer 0's
+   ``moe_forward`` at a decode (4 rows) and a chunk (64 tokens) shape
+   routes exactly as ``moe_oracle``, a float32 oracle that keeps each
+   expert's first C tokens by counting, drops assignments, and lies within
+   ``MOE_ATOL + MOE_RTOL * |want|`` of it. ``forward`` on each prompt with
+   its served tokens appended is counted (``flash_attention`` 24 per call)
+   and must give finite logits; its argmax is reported, not gated;
+10. print the ``kernels`` JSON line, then the result line.
 
 Exits non-zero, printing no result, when ``torch.cuda.is_available()`` is
 false or when the repository's ``src/repro_torch`` is not beside it.
@@ -98,12 +116,70 @@ MARGIN = 0.1
 #: differences of up to ~0.3 between them; a dtype fault (a float32 leaf
 #: cast to bf16, a state kept in bf16) moves them further.
 BF16_LOGIT_TOL = 0.5
+#: bf16 qwen2-moe-a2.7b, one layer's ``moe_forward`` against the float32
+#: oracle ``moe_oracle`` with the same routing, elementwise
+#: |got - want| <= MOE_ATOL + MOE_RTOL * |want|: the bf16 layer rounds its
+#: input, the experts' hidden activations and outputs, the gate products
+#: and the shared expert's, each by up to 2^-9 of values up to ~4, and sums
+#: 2048- and 1408-long products in another order than the oracle
+MOE_ATOL, MOE_RTOL = 5e-2, 2e-2
 SEED = 0
 
 
 def require(cond: bool, msg: str) -> None:
     if not cond:
         raise RuntimeError(f"chip_smoke: {msg}")
+
+
+def moe_oracle(lp: dict, m, x):
+    """A plain float32 oracle of one MoE layer, written apart from
+    ``models/moe.py``: x (B, S, d) is grouped as the reference groups it
+    (one group per batch row when S > 1, one group at decode), each token
+    takes its top-k experts of a float32 softmax router, and each expert
+    keeps the first C tokens that chose it, counted in token order (no
+    sort). Every expert's gated FFN runs in float32 on the tokens it kept,
+    weighted by their gates; the sigmoid-gated shared expert (a silu MLP,
+    as qwen2-moe-a2.7b's ``act`` is) is added.
+    Returns (y (B, S, d) float32, expert indices (G, T, k), keep mask
+    (G, T, k))."""
+    import math
+
+    import torch
+    import torch.nn.functional as F
+    B, S, d = x.shape
+    G = B if S > 1 else 1
+    T = B * S // G
+    C = max(1, math.ceil(T * m.top_k / m.n_experts * m.capacity_factor))
+    xg = x.float().reshape(G, T, d)
+    probs = torch.softmax(xg @ lp["router"].float(), dim=-1)
+    gate, idx = probs.topk(m.top_k, dim=-1)
+    if m.renorm_topk:
+        gate = gate / gate.sum(-1, keepdim=True).clamp_min(1e-9)
+    keep = torch.zeros_like(idx, dtype=torch.bool)
+    y = torch.zeros_like(xg)
+    for g in range(G):
+        for e in range(m.n_experts):
+            hit = idx[g] == e                          # (T, k)
+            taken = 0
+            for t in hit.any(-1).nonzero()[:, 0].tolist():
+                if taken == C:
+                    break
+                keep[g, t] |= hit[t]
+                taken += 1
+            rows = (keep[g] & hit).any(-1)
+            if not rows.any():
+                continue
+            xe = xg[g, rows]
+            h = F.silu(xe @ lp["experts_gate"][e].float()) * (
+                xe @ lp["experts_up"][e].float())
+            w = (gate[g, rows] * hit[rows]).sum(-1, keepdim=True)
+            y[g, rows] += w * (h @ lp["experts_down"][e].float())
+    xf = x.float().reshape(G, T, d)
+    ys = (F.silu(xf @ lp["gate"].float()) * (xf @ lp["up"].float())
+          ) @ lp["down"].float()
+    if m.shared_gate:
+        ys = ys * torch.sigmoid(xf @ lp["shared_gate"].float())
+    return (y + ys).reshape(B, S, d), idx, keep
 
 
 def main() -> int:
@@ -127,9 +203,11 @@ def main() -> int:
     from repro_torch.kernels import gemm as gm
     from repro_torch.kernels import gemm_wq as wq
     from repro_torch.kernels import lru_scan as lru
+    from repro_torch.kernels import packed_gather as pg
     from repro_torch.kernels import paged_attention as pa
     from repro_torch.models import (decode_step, extend_step, forward, init,
                                     logits_fn)
+    from repro_torch.models import moe
     from repro_torch.models.cache import init_cache
     from repro_torch.quant import quantize_kv, quantize_params, quantize_weight
     from repro_torch.serve import Request, ServeEngine
@@ -339,7 +417,45 @@ def main() -> int:
                 shape=f"B={B_} L={L_} D={D_} float32", ms=ms,
                 plain_ms=plain_ms, library_ms=None, bound_ms=b_ms,
                 bound_by=b_by, max_abs_err=err)
-    del flush, a, b
+    # packed_gather_rows at qwen2-moe-a2.7b's token streams: a decode step
+    # of 4 rows (T = 4, M = 16) and a prefill chunk (T = 64, M = 256) of
+    # d_model 2048 in bf16, each idx the expert-sorted token order that
+    # moe._dispatch_sort gathers by; and a ragged float32 shape with
+    # unsorted int64 indices. Bit-exact (torch.equal); torch.index_select
+    # is the library call. The bound reads each table row that idx names
+    # once, the indices once, and writes the output once.
+    qm = get_arch("qwen2-moe-a2.7b")
+    k_top = qm.moe.top_k
+    for N_, D_, M_, dt_ in ((4, qm.d_model, 4 * k_top, torch.bfloat16),
+                            (64, qm.d_model, 64 * k_top, torch.bfloat16),
+                            (1000, 100, 37, torch.float32)):
+        table_ = torch.randn((N_, D_), generator=gen, device=dev).to(dt_)
+        if dt_ == torch.bfloat16:
+            experts = torch.randint(0, qm.moe.n_experts, (M_,),
+                                    generator=gen, device=dev)
+            idx_ = torch.argsort(experts, stable=True) // k_top
+        else:
+            idx_ = torch.randint(0, N_, (M_,), generator=gen, device=dev)
+        got = pg.packed_gather_rows_cuda(table_, idx_)
+        require(torch.equal(got, ref.gather_rows_ref(table_, idx_)),
+                f"packed_gather_rows N={N_} D={D_} M={M_}: not bit-exact")
+        ms = cold_ms(lambda: pg.packed_gather_rows_cuda(table_, idx_))
+        plain_ms = cold_ms(lambda: ref.gather_rows_ref(table_, idx_))
+        lib_ms = cold_ms(lambda: torch.index_select(table_, 0, idx_))
+        elt = table_.element_size()
+        b_ms, b_by = bound(idx_.unique().numel() * D_ * elt + M_ * 8
+                           + M_ * D_ * elt, 0)
+        print(f"[kernel] packed_gather_rows N={N_} D={D_} M={M_} {dt_}: "
+              f"bit-exact, copy unit "
+              f"{pg.copy_unit(D_ * elt, table_.data_ptr(), got.data_ptr())}"
+              f" B, ms={ms:.4f} plain_ms={plain_ms:.4f} "
+              f"library_ms={lib_ms:.4f} bound_ms={b_ms:.5f} ({b_by})")
+        if M_ == 64 * k_top:
+            entries["packed_gather"] = dict(
+                shape=f"N={N_} D={D_} M={M_} bf16 int64", ms=ms,
+                plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
+                bound_by=b_by, max_abs_err=0.0)
+    del flush, a, b, table_, idx_, got
 
     # ---- 4. serve full-width qwen3-0.6b --------------------------------
     t0 = time.perf_counter()
@@ -713,7 +829,166 @@ def main() -> int:
                 f"{diff:.4f} from the float32 witness, over {BF16_LOGIT_TOL}")
     del fparams, params32, fwd_b, rep_b, fwd_f, rep_f, wit
 
-    # ---- 9. summary lines ----------------------------------------------
+    # ---- 9. serve full-width qwen2-moe-a2.7b ---------------------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    ML = qm.n_layers
+    t0 = time.perf_counter()
+    mparams = init(qm, seed=SEED, device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in mparams["blocks"].values()) + sum(
+        t.numel() for k, t in mparams.items() if k != "blocks")
+    print(f"[serve_moe] {qm.name}: {ML} layers, d_model {qm.d_model}, "
+          f"{qm.n_heads}/{qm.n_kv_heads} heads of {qm.resolved_head_dim}, "
+          f"{qm.moe.n_experts} experts of {qm.moe.d_expert}, top "
+          f"{qm.moe.top_k}, shared {qm.moe.shared_hidden}, vocab "
+          f"{qm.vocab_size}; {n_params / 1e9:.3f} B params, bf16 "
+          f"{2 * n_params / 1e9:.2f} GB, drawn from torch.Generator seed "
+          f"{SEED} in {time.perf_counter() - t0:.2f} s")
+    mrng = np.random.default_rng(SEED)
+    mreqs = [Request(uid=i, prompt=mrng.integers(0, qm.vocab_size,
+                                                 int(mrng.integers(40, 201))),
+                     max_new_tokens=16) for i in range(8)]
+    engine, res_m, moe_counts = serve(
+        qm, mparams, "serve_moe", lambda steps, chunks: {
+            "packed_gather": ML * (steps + chunks),
+            "gemm": 3 * ML * (steps + chunks),
+            "paged_attention": ML * steps}, mreqs)
+    steps_m = engine.steps
+    print(f"[serve_moe] launches while serving {moe_counts} (per decode "
+          f"step: packed_gather {ML}, gemm {3 * ML}, paged_attention {ML}; "
+          f"per prefill chunk: packed_gather {ML}, gemm {3 * ML}); weights "
+          f"{engine.param_bytes / 1e9:.3f} GB, KV pools "
+          f"{engine.kv_pool_bytes / 1e9:.3f} GB")
+    del engine
+    if profile_rungs:
+        profile_serving(qm, mparams, "profile_moe", mreqs)
+
+    # Gate 1: the engine's recorded steps replayed through extend_step (its
+    # chunks, padded length prefill_chunk) and decode_step (the same rows),
+    # teacher-forced on the served tokens, each request in pages of its
+    # own. A MoE layer's capacity drops depend on which rows decode
+    # together, so the served tokens can only be held to the same steps.
+    P_m = -(-engine_kw["max_len"] // 16)
+    cache = init_cache(qm, 1 + len(mreqs) * P_m, 16, dev)
+    tables_m = torch.zeros((engine_kw["max_slots"], P_m), dtype=torch.int32,
+                           device=dev)
+    prompts_m = {r.uid: torch.as_tensor(r.prompt, device=dev) for r in mreqs}
+    served_m = {r.uid: res.tokens for r, res in zip(mreqs, res_m)}
+    rows_m = {r.uid: [] for r in mreqs}
+    for step in steps_m:
+        if step[0] == "prefill_chunk":
+            _, uid, slot, off, n = step
+            if off == 0:
+                tables_m[slot] = 1 + uid * P_m + torch.arange(P_m,
+                                                              device=dev)
+            lg = extend_step(mparams, qm, cache,
+                             prompts_m[uid][None, off:off + n], off, slot,
+                             tables_m, padded_len=engine_kw["prefill_chunk"])
+            if off + n == len(prompts_m[uid]):
+                rows_m[uid].append(lg[0, 0])
+        else:
+            _, uids, slots, pos = step
+            feed = [[served_m[u][p - len(prompts_m[u])]]
+                    for u, p in zip(uids, pos)]
+            lg = decode_step(mparams, qm, cache,
+                             torch.tensor(feed, device=dev),
+                             torch.tensor(pos, device=dev),
+                             tables_m[torch.tensor(slots, device=dev)])
+            for u, row in zip(uids, lg[:, 0]):
+                rows_m[u].append(row)
+    worst, exact, gated = 0.0, 0, 0
+    for req, res in zip(mreqs, res_m):
+        e, g, w = hold(torch.stack(rows_m[req.uid]), res.tokens,
+                       f"moe request {req.uid} vs the replay of its steps",
+                       qm.vocab_size)
+        exact, gated, worst = exact + e, gated + g, max(worst, w)
+    n_dec = [len(st[1]) for st in steps_m if st[0] == "decode"]
+    print(f"[serve_moe] served tokens vs the replay of the engine's "
+          f"{len(steps_m)} steps ({len(n_dec)} decode steps of "
+          f"{min(n_dec)}-{max(n_dec)} rows): exact argmax {exact}/{n_new}, "
+          f"{gated} steps with a top-1/top-2 gap > {MARGIN} all equal, "
+          f"worst gap {worst:.4f} (margin {MARGIN})")
+    del cache, rows_m, lg
+
+    # Gate 2, an independent witness: layer 0's moe_forward in bf16 at the
+    # decode shape (4 rows, one group) and the chunk shape (64 tokens)
+    # against moe_oracle in float32 on the same bf16 inputs. Inputs lie
+    # around one common direction so that tokens share experts and the
+    # capacity drops assignments. The routing (experts and keep mask) must
+    # be identical, the output within MOE_ATOL + MOE_RTOL * |want|.
+    require(qm.act == "silu", "moe_oracle's shared expert is a silu MLP")
+    lp0 = {k: v[0] for k, v in mparams["blocks"].items()}
+    for shape in ((4, 1), (1, 64)):
+        base = torch.randn(qm.d_model, generator=gen, device=dev)
+        x = (base + 0.7 * torch.randn(shape + (qm.d_model,), generator=gen,
+                                      device=dev)).bfloat16()
+        got = moe.moe_forward(lp0, qm, x)
+        want, o_idx, o_keep = moe_oracle(lp0, qm.moe, x)
+        G_ = x.shape[0] if x.shape[1] > 1 else 1
+        xg = x.reshape(G_, -1, qm.d_model)
+        _, p_idx = moe._route(lp0, qm.moe, xg.float())
+        C_ = moe.capacity(qm.moe, xg.shape[1])
+        _, (dest, order) = moe._dispatch_sort(xg, p_idx, C_,
+                                              qm.moe.n_experts)
+        p_keep = torch.empty_like(dest, dtype=torch.bool)
+        p_keep[order] = dest < G_ * qm.moe.n_experts * C_
+        p_keep = p_keep.view_as(o_keep)
+        drops = int((~o_keep).sum())
+        err = (got.float() - want).abs()
+        ok = bool((err <= MOE_ATOL + MOE_RTOL * want.abs()).all())
+        print(f"[moe_layer] layer 0 at {shape[0]}x{shape[1]} tokens (C = "
+              f"{C_}): routing identical "
+              f"{torch.equal(p_idx, o_idx) and torch.equal(p_keep, o_keep)}"
+              f", {drops} of {o_keep.numel()} assignments dropped; bf16 vs "
+              f"float32 oracle max |diff| {err.max().item():.5f}, mean "
+              f"{err.mean().item():.6f}, max |want| "
+              f"{want.abs().max().item():.3f} (limit {MOE_ATOL} + "
+              f"{MOE_RTOL} |want|)")
+        require(torch.equal(p_idx, o_idx) and torch.equal(p_keep, o_keep),
+                f"moe layer at {shape}: routing differs from the oracle's")
+        require(drops > 0, f"moe layer at {shape}: no assignment dropped, "
+                "so the capacity rule went untested")
+        require(bool(torch.isfinite(got.float()).all()) and ok,
+                f"moe layer at {shape}: {err.max().item():.4f} from the "
+                "float32 oracle")
+    del lp0, got, want, x
+
+    # forward on each prompt with its served tokens appended: counted, and
+    # finite logits of the right shape. forward routes a whole sequence as
+    # one group, so its drops differ from chunked serving's and its argmax
+    # is reported, not gated.
+    for k in ops.KERNELS:
+        k.launches = 0
+    agree, fwd_ms = 0, []
+    for req, res in zip(mreqs, res_m):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lg = forward_logits(mparams, req, res.tokens, qm)
+        torch.cuda.synchronize()
+        fwd_ms.append((time.perf_counter() - t0) * 1e3)
+        require(lg.shape == (16, qm.vocab_size)
+                and bool(torch.isfinite(lg).all()),
+                f"moe forward logits of shape {tuple(lg.shape)}, or not "
+                "finite")
+        agree += int((lg.argmax(-1).cpu() == torch.tensor(res.tokens)).sum())
+    moe_fwd_counts = {k.name: k.launches for k in ops.KERNELS}
+    require(moe_fwd_counts == {**{k.name: 0 for k in ops.KERNELS},
+                               "gemm": 3 * ML * 8, "packed_gather": ML * 8,
+                               "flash_attention": ML * 8},
+            f"launches in the 8 moe forward passes {moe_fwd_counts}")
+    mlens = [len(r.prompt) + 15 for r in mreqs]
+    print(f"[forward_moe] 8 teacher-forced passes of {min(mlens)}-"
+          f"{max(mlens)} tokens, mean {np.mean(fwd_ms):.1f} ms each; "
+          f"launches {moe_fwd_counts} (per forward: gemm {3 * ML}, "
+          f"packed_gather {ML}, flash_attention {ML}); forward's argmax "
+          f"equals the served token at {agree}/{n_new} steps (reported, "
+          f"not gated: whole-sequence routing drops other assignments)")
+    fm_counts["serve_moe"], fm_counts["forward_moe"] = (moe_counts,
+                                                        moe_fwd_counts)
+    del mparams, lg
+
+    # ---- 10. summary lines ---------------------------------------------
     kernels = []
     root = Path(__file__).resolve().parent
     for k in ops.KERNELS:

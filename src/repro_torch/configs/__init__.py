@@ -1,5 +1,6 @@
 from repro_torch.configs.archs import ARCHS, get_arch, reduced
-from repro_torch.configs.base import LayerSpec, ModelConfig, SSMConfig
+from repro_torch.configs.base import (LayerSpec, ModelConfig, MoEConfig,
+                                     SSMConfig)
 
-__all__ = ["ARCHS", "LayerSpec", "ModelConfig", "SSMConfig", "get_arch",
-           "reduced"]
+__all__ = ["ARCHS", "LayerSpec", "ModelConfig", "MoEConfig", "SSMConfig",
+           "get_arch", "reduced"]

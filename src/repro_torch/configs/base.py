@@ -21,7 +21,25 @@ class LayerSpec:
 
 
 #: the layer kinds the port serves; a pattern repeats one of them
-FULL, MAMBA = LayerSpec("full", "dense"), LayerSpec("mamba", "none")
+FULL, MOE, MAMBA = (LayerSpec("full", "dense"), LayerSpec("full", "moe"),
+                    LayerSpec("mamba", "none"))
+
+
+@dataclass(frozen=True)
+class MoEConfig:
+    n_experts: int = 8
+    top_k: int = 2
+    n_shared: int = 0
+    d_expert: int = 1408          # per-expert FFN hidden size
+    d_shared: int = 0             # total shared hidden (0 => n_shared*d_expert)
+    capacity_factor: float = 1.25
+    renorm_topk: bool = True      # renormalize top-k gates (qwen2-moe: no)
+    shared_gate: bool = False     # qwen2-moe gates the shared expert output
+    router_dtype: str = "float32"
+
+    @property
+    def shared_hidden(self) -> int:
+        return self.d_shared or self.n_shared * self.d_expert
 
 
 @dataclass(frozen=True)
@@ -36,7 +54,7 @@ class SSMConfig:
 @dataclass(frozen=True)
 class ModelConfig:
     name: str = "model"
-    family: str = "dense"         # dense | ssm
+    family: str = "dense"         # dense | moe | ssm
     n_layers: int = 2
     d_model: int = 256
     n_heads: int = 4
@@ -50,6 +68,7 @@ class ModelConfig:
     qk_norm: bool = False
     rope_theta: float = 10000.0
     use_rope: bool = True         # rotary positions
+    moe: MoEConfig | None = None  # set for mixture-of-experts MLPs
     ssm: SSMConfig | None = None  # set for Mamba-1 layers
     act: str = "silu"             # silu | gelu
     gated_mlp: bool = True
@@ -67,16 +86,22 @@ class ModelConfig:
 
     def __post_init__(self):
         kinds = set(self.pattern)
-        if len(kinds) != 1 or not kinds <= {FULL, MAMBA} or (
-                kinds == {MAMBA} and self.ssm is None):
+        if len(kinds) != 1 or not kinds <= {FULL, MOE, MAMBA} or (
+                kinds == {MAMBA} and self.ssm is None) or (
+                kinds == {MOE} and self.moe is None):
             raise NotImplementedError(
                 f"{self.name}: the port serves a repeated full-attention "
-                f"dense layer, or a repeated mamba layer with ssm set; got "
-                f"pattern {self.pattern}")
+                f"dense layer, a repeated full-attention moe layer with moe "
+                f"set, or a repeated mamba layer with ssm set; got pattern "
+                f"{self.pattern}")
         if self.is_ssm and (self.weight_dtype or self.kv_dtype):
             raise NotImplementedError(
                 f"{self.name}: weight_dtype / kv_dtype on mamba layers; the "
                 "port does not quantize recurrent projections yet")
+        if self.is_moe and (self.weight_dtype or self.kv_dtype):
+            raise NotImplementedError(
+                f"{self.name}: weight_dtype / kv_dtype on moe layers; the "
+                "port does not quantize experts yet")
         if self.act not in ("silu", "gelu"):
             raise ValueError(f"act={self.act!r}; expected silu or gelu")
         if not self.is_ssm and (self.n_kv_heads < 1
@@ -110,6 +135,12 @@ class ModelConfig:
         """Every layer is a Mamba-1 mixer with no MLP (no attention, no
         paged KV pools)."""
         return self.pattern[0] == MAMBA
+
+    @property
+    def is_moe(self) -> bool:
+        """Every layer is full attention with a mixture-of-experts MLP
+        (``models/moe.py``)."""
+        return self.pattern[0] == MOE
 
     @property
     def d_inner(self) -> int:

@@ -42,7 +42,8 @@ def _tensor(a, device: torch.device) -> torch.Tensor:
 def convert_params(tree: dict, cfg: ModelConfig, *, device: str = "cuda"
                    ) -> dict:
     """Reference pytree -> port params, cast once to the compute dtype
-    (Mamba's ``dt_proj`` bias, ``A_log`` and ``D`` stay float32).
+    (Mamba's ``dt_proj`` bias, ``A_log`` and ``D`` and a MoE layer's
+    router stay float32).
 
     The reference stacks its repeated layer pattern under
     ``tree["blocks"]`` (a list with one entry per pattern position, each
@@ -52,8 +53,8 @@ def convert_params(tree: dict, cfg: ModelConfig, *, device: str = "cuda"
     dev = resolve(device)
     if "prefix" in tree or "suffix" in tree or len(tree["blocks"]) != 1:
         raise NotImplementedError(
-            "the port converts one stacked full-attention dense or mamba "
-            "pattern with no prefix/suffix layers")
+            "the port converts one stacked full-attention dense or moe, or "
+            "mamba pattern with no prefix/suffix layers")
 
     def t(a, dtype=cfg.compute_dtype):
         if _is_quant_leaf(a):
@@ -76,19 +77,31 @@ def convert_params(tree: dict, cfg: ModelConfig, *, device: str = "cuda"
                   "D": t(mb["D"], torch.float32),
                   "out_proj": t(mb["out_proj"]["kernel"])}
         return _finish(tree, cfg, blocks, blocks["in_proj"].shape[0], t)
-    a, m = b["attn"], b["mlp"]
+    a = b["attn"]
     blocks = {"pre_norm": t(b["pre_norm"]["scale"]),
               "q_proj": t(a["q_proj"]["kernel"]),
               "k_proj": t(a["k_proj"]["kernel"]),
               "v_proj": t(a["v_proj"]["kernel"]),
               "o_proj": t(a["o_proj"]["kernel"]),
-              "mlp_norm": t(b["mlp_norm"]["scale"]),
-              "up": t(m["up"]["kernel"]), "down": t(m["down"]["kernel"])}
+              "mlp_norm": t(b["mlp_norm"]["scale"])}
     if cfg.qk_norm:
         blocks["q_norm"] = t(a["q_norm"]["scale"])
         blocks["k_norm"] = t(a["k_norm"]["scale"])
-    if cfg.gated_mlp:
-        blocks["gate"] = t(m["gate"]["kernel"])
+    if cfg.is_moe:
+        mo = b["moe"]
+        blocks.update(router=t(mo["router"]["kernel"], torch.float32),
+                      **{f"experts_{k}": t(mo["experts"][k])
+                         for k in ("gate", "up", "down")})
+        if "shared" in mo:      # the shared expert, a gated MLP
+            blocks.update({k: t(mo["shared"][k]["kernel"])
+                           for k in ("gate", "up", "down")})
+        if "shared_gate" in mo:
+            blocks["shared_gate"] = t(mo["shared_gate"]["kernel"])
+    else:
+        m = b["mlp"]
+        blocks.update(up=t(m["up"]["kernel"]), down=t(m["down"]["kernel"]))
+        if cfg.gated_mlp:
+            blocks["gate"] = t(m["gate"]["kernel"])
     return _finish(tree, cfg, blocks, blocks["q_proj"].shape[0], t)
 
 

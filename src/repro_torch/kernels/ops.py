@@ -6,8 +6,8 @@ version in :mod:`repro_torch.kernels.ref`, after the same shape and layout
 checks the kernel's wrapper makes, so CPU runs hold callers to what the
 kernel takes. Counterparts of
 ``repro/kernels/ops.py`` ``gemm`` (:98), ``gemm_wq`` (:181),
-``flash_attention`` (:359), ``paged_attention`` (:449) and ``lru_scan``
-(:477).
+``flash_attention`` (:359), ``paged_attention`` (:449), ``lru_scan``
+(:477) and ``packed_gather_rows`` (:563).
 """
 from __future__ import annotations
 
@@ -17,12 +17,13 @@ from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import gemm as _gemm
 from repro_torch.kernels import gemm_wq as _wq
 from repro_torch.kernels import lru_scan as _lru
+from repro_torch.kernels import packed_gather as _pg
 from repro_torch.kernels import paged_attention as _pa
 from repro_torch.kernels import ref
 
 #: the CUDA kernels of the serving paths, each with its ``launches`` count
 KERNELS = (_gemm.KERNEL, _pa.KERNEL, _fa.KERNEL, _wq.KERNEL, _pa.KERNEL_QUANT,
-           _lru.KERNEL)
+           _lru.KERNEL, _pg.KERNEL)
 
 
 def gemm(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor | None = None,
@@ -88,3 +89,13 @@ def lru_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         return _lru.lru_scan_cuda(a, b)
     _lru.validate(a, b)
     return ref.lru_scan_ref(a, b)
+
+
+def packed_gather_rows(table: torch.Tensor, idx: torch.Tensor
+                       ) -> torch.Tensor:
+    """out[i] = table[idx[i]]: table (N, D) bf16 / fp16 / fp32, idx (M,)
+    int32 or int64 in any order, clamped as jnp indexing clamps."""
+    if table.is_cuda:
+        return _pg.packed_gather_rows_cuda(table, idx)
+    _pg.validate(table, idx)
+    return ref.gather_rows_ref(table, idx)

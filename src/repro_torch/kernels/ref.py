@@ -1,9 +1,10 @@
 """Plain PyTorch versions of the kernels (``repro/kernels/ref.py`` :8, :23,
-:62, :89, :124).
+:62, :89, :124, :140).
 
 They are what ``kernels/ops.py`` runs on CPU tensors, and what
 ``chip_smoke.py`` holds each CUDA kernel against on the card. Every one
-computes in float32 and returns the dtype the kernel returns.
+computes in float32 and returns the dtype the kernel returns; the row
+gather computes nothing and copies rows as they are.
 """
 from __future__ import annotations
 
@@ -130,3 +131,12 @@ def lru_scan_ref(a, b):
         carry = a[:, t] * carry + b[:, t]
         h[:, t] = carry
     return h
+
+
+def gather_rows_ref(table, idx):
+    """Indexed row stream: out[i] = table[idx[i]]. A negative index counts
+    from the end and any index is then clamped to [0, N - 1], as jnp
+    indexing does (torch indexing would raise instead)."""
+    n = table.shape[0]
+    idx = idx.long()
+    return table[torch.where(idx < 0, idx + n, idx).clamp(0, n - 1)]

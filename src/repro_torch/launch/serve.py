@@ -5,6 +5,7 @@
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-0.6b \
       --weight-dtype int4 --kv-dtype fp8 --quant-block 32   # quantized
   PYTHONPATH=src python -m repro_torch.launch.serve --arch falcon-mamba-7b
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-moe-a2.7b
   PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu
 
 Weights are random, drawn from a ``torch.Generator`` seeded by ``--seed``;

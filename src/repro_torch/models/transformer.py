@@ -1,4 +1,5 @@
-"""The model spine (``repro/models/transformer.py``): a dense decoder, or a
+"""The model spine (``repro/models/transformer.py``): a dense decoder, the
+same with a mixture-of-experts MLP in every layer (``cfg.is_moe``), or a
 stack of Mamba-1 blocks (``cfg.is_ssm``).
 
 Parameters are a plain dict of tensors in the compute dtype. Per-layer
@@ -9,7 +10,12 @@ its scanned pattern (``transformer.py:76-114``):
      "blocks": {"pre_norm", "q_proj", "k_proj", "v_proj", "o_proj",
                 ["q_norm", "k_norm"], "mlp_norm", ["gate"], "up", "down"}}
 
-or, for Mamba layers, which have no MLP and no MLP norm,
+where a MoE layer has, in place of the dense MLP, the float32
+``router`` (d, E), the routed experts ``experts_gate`` / ``experts_up``
+(E, d, f) and ``experts_down`` (E, f, d), the shared expert as ``gate`` /
+``up`` / ``down`` and its sigmoid gate ``shared_gate`` (d, 1)
+(``models/moe.py``); or, for Mamba layers, which have no MLP and no MLP
+norm,
 
      "blocks": {"pre_norm", "in_proj", "conv", "x_proj", "dt_proj",
                 "dt_bias", "A_log", "D", "out_proj"}
@@ -24,6 +30,7 @@ table per call, a slab of rows at a time, keeping no dense copy.
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -32,6 +39,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve
 from repro_torch.models import attention as attn
 from repro_torch.models.layers import apply_mlp, apply_norm
+from repro_torch.models.moe import moe_forward
 from repro_torch.models.recurrent import mamba_forward
 from repro_torch.quant.tensor import QuantTensor
 
@@ -44,17 +52,18 @@ def init(cfg: ModelConfig, *, seed: int = 0, device: str = "cuda") -> dict:
     """Random parameters from a seeded ``torch.Generator`` on ``device``:
     the reference's initializers (normal / sqrt(fan_in) kernels and
     embedding, zero norm scales; Mamba's S4D-real ``A_log``, ``D`` = 1 and
-    a ``dt_proj`` bias of -4.6, ``recurrent.py:174-193``), drawn in float32
-    and cast once to the compute dtype. They are not ``jax.random``'s
-    numbers."""
+    a ``dt_proj`` bias of -4.6, ``recurrent.py:174-193``; a MoE layer's
+    leaves with ``moe.py:32-53``'s shapes, the router kept in float32),
+    drawn in float32 and cast once to the compute dtype. They are not
+    ``jax.random``'s numbers."""
     dev = resolve(device)
     g = torch.Generator(device=dev).manual_seed(seed)
     L, d, hd = cfg.n_layers, cfg.d_model, cfg.resolved_head_dim
     H, K, F, V = cfg.n_heads, cfg.n_kv_heads, cfg.d_ff, cfg.vocab_size
 
-    def normal(shape, fan_in):
+    def normal(shape, fan_in, dtype=cfg.compute_dtype):
         w = torch.randn(shape, generator=g, device=dev, dtype=torch.float32)
-        return (w / math.sqrt(fan_in)).to(cfg.compute_dtype)
+        return (w / math.sqrt(fan_in)).to(dtype)
 
     def zeros(*shape):
         return torch.zeros(shape, device=dev, dtype=cfg.compute_dtype)
@@ -68,13 +77,16 @@ def init(cfg: ModelConfig, *, seed: int = 0, device: str = "cuda") -> dict:
               "k_proj": normal((L, d, K * hd), d),
               "v_proj": normal((L, d, K * hd), d),
               "o_proj": normal((L, H * hd, d), H * hd),
-              "mlp_norm": zeros(L, d), "up": normal((L, d, F), d),
-              "down": normal((L, F, d), F)}
+              "mlp_norm": zeros(L, d)}
     if cfg.qk_norm:
         blocks["q_norm"] = zeros(L, hd)
         blocks["k_norm"] = zeros(L, hd)
-    if cfg.gated_mlp:
-        blocks["gate"] = normal((L, d, F), d)
+    if cfg.is_moe:
+        blocks.update(_moe_init(cfg, normal, dev))
+    else:
+        blocks.update(up=normal((L, d, F), d), down=normal((L, F, d), F))
+        if cfg.gated_mlp:
+            blocks["gate"] = normal((L, d, F), d)
     params = {"embed": normal((V, d), d), "final_norm": zeros(d),
               "blocks": blocks}
     if not cfg.tie_embeddings:
@@ -82,19 +94,25 @@ def init(cfg: ModelConfig, *, seed: int = 0, device: str = "cuda") -> dict:
     return params
 
 
+def _stacked(cfg: ModelConfig, normal, dev: torch.device, shape: tuple,
+             fan_in: int) -> torch.Tensor:
+    """A (layers,) + shape kernel whose layers are drawn in float32 and
+    cast one at a time, so the float32 temporary is one layer's (a
+    stacked ``in_proj`` of falcon-mamba-7b would be 17 GB in float32, an
+    expert slab of qwen2-moe-a2.7b 16.6 GB)."""
+    out = torch.empty((cfg.n_layers,) + shape, dtype=cfg.compute_dtype,
+                      device=dev)
+    for i in range(cfg.n_layers):
+        out[i] = normal(shape, fan_in)
+    return out
+
+
 def _mamba_init(cfg: ModelConfig, normal, dev: torch.device) -> dict:
-    """The stacked Mamba leaves. Each layer's kernels are drawn in float32
-    and cast on their own, so the float32 temporary is one layer's (a
-    stacked ``in_proj`` of falcon-mamba-7b would be 17 GB in float32)."""
+    """The stacked Mamba leaves."""
     L, d, s = cfg.n_layers, cfg.d_model, cfg.ssm
     DI, N, R = cfg.d_inner, s.d_state, cfg.dt_rank
 
-    def stacked(shape, fan_in):
-        out = torch.empty((L,) + shape, dtype=cfg.compute_dtype, device=dev)
-        for i in range(L):
-            out[i] = normal(shape, fan_in)
-        return out
-
+    stacked = functools.partial(_stacked, cfg, normal, dev)
     A = torch.arange(1, N + 1, dtype=torch.float32, device=dev)
     return {"in_proj": stacked((d, 2 * DI), d),
             "conv": stacked((DI, s.d_conv), s.d_conv),
@@ -106,6 +124,24 @@ def _mamba_init(cfg: ModelConfig, normal, dev: torch.device) -> dict:
             "out_proj": stacked((DI, d), DI)}
 
 
+def _moe_init(cfg: ModelConfig, normal, dev: torch.device) -> dict:
+    """The stacked MoE leaves; the router stays float32."""
+    L, d, m = cfg.n_layers, cfg.d_model, cfg.moe
+    E, f, fs = m.n_experts, m.d_expert, m.shared_hidden
+
+    stacked = functools.partial(_stacked, cfg, normal, dev)
+    leaves = {"router": normal((L, d, E), d, torch.float32),
+              "experts_gate": stacked((E, d, f), d),
+              "experts_up": stacked((E, d, f), d),
+              "experts_down": stacked((E, f, d), f)}
+    if fs:
+        leaves.update(gate=stacked((d, fs), d), up=stacked((d, fs), d),
+                      down=stacked((fs, d), fs))
+        if m.shared_gate:
+            leaves["shared_gate"] = normal((L, d, 1), d)
+    return leaves
+
+
 def _layers(params: dict):
     """Per-layer views of the stacked ``blocks`` tensors."""
     blocks = params["blocks"]
@@ -114,14 +150,18 @@ def _layers(params: dict):
         yield i, {name: t[i] for name, t in blocks.items()}
 
 
-def _block(lp: dict, cfg: ModelConfig, x: torch.Tensor, mix) -> torch.Tensor:
+def _block(lp: dict, cfg: ModelConfig, x: torch.Tensor, mix, *,
+           capacity_tokens: int | None = None) -> torch.Tensor:
     """Pre-norm residual block: the mixer (attention or Mamba), then the
-    MLP; a Mamba layer (``mlp == "none"``) has no MLP
-    (``transformer.py:141-258``)."""
+    MLP, dense or mixture-of-experts (``capacity_tokens`` goes to
+    :func:`~repro_torch.models.moe.moe_forward`); a Mamba layer
+    (``mlp == "none"``) has no MLP (``transformer.py:141-258``)."""
     x = x + mix(apply_norm(lp["pre_norm"], x, cfg.norm_eps))
     if cfg.is_ssm:
         return x
     h = apply_norm(lp["mlp_norm"], x, cfg.norm_eps)
+    if cfg.is_moe:
+        return x + moe_forward(lp, cfg, h, capacity_tokens=capacity_tokens)
     return x + apply_mlp(lp, h, cfg.act, cfg.gated_mlp)
 
 
@@ -211,13 +251,20 @@ def decode_step(params: dict, cfg: ModelConfig, cache: dict,
 
 def extend_step(params: dict, cfg: ModelConfig, cache: dict,
                 tokens: torch.Tensor, pos: int, slot: int,
-                block_tables: torch.Tensor) -> torch.Tensor:
+                block_tables: torch.Tensor,
+                padded_len: int | None = None) -> torch.Tensor:
     """Chunked prefill of slot ``slot``: tokens (1, T) at positions
     ``pos .. pos+T-1``. Writes the pools in place; returns the logits
     (1, 1, V) of the chunk's last token (``:512``). A Mamba layer carries
     the slot's state from the previous chunk, and starts it from zero on
     the first chunk (``pos == 0``), so a reused slot keeps nothing of its
-    last request (``transformer.py:198-206``)."""
+    last request (``transformer.py:198-206``). ``padded_len`` (default T)
+    is the length the reference pads a ragged chunk to behind ``n_valid``
+    (the engine's ``prefill_chunk``): a MoE layer takes its expert
+    capacity from it, as the reference's padded chunk does."""
+    if padded_len is not None and padded_len < tokens.shape[1]:
+        raise ValueError(f"padded_len {padded_len} < chunk length "
+                         f"{tokens.shape[1]}")
     x = embed_tokens(params, cfg, tokens)
     table = block_tables[slot]
     for i, lp in _layers(params):
@@ -228,5 +275,5 @@ def extend_step(params: dict, cfg: ModelConfig, cache: dict,
             pools = {name: t[i] for name, t in cache.items()}
             mix = lambda h, lp=lp, pools=pools: attn.attention_extend(
                 lp, cfg, h, pools, pos, table)
-        x = _block(lp, cfg, x, mix)
+        x = _block(lp, cfg, x, mix, capacity_tokens=padded_len)
     return logits_fn(params, cfg, x[:, -1:])

@@ -16,6 +16,17 @@ With ``cfg.weight_dtype`` set the engine quantizes the weights it is given
 (``quant.quantize_params``), as the reference engine does at init; with
 ``cfg.kv_dtype`` set its pools hold int8 or fp8 codes with per-row scales.
 
+Every prefill chunk is given ``prefill_chunk`` as its padded length
+(``extend_step``'s ``padded_len``), the length the reference pads a ragged
+last chunk to, so a MoE layer routes it with the reference's capacity.
+The engine keeps the steps it took in :attr:`ServeEngine.steps`, the part
+of the reference's lifecycle trace (``engine.py:788``, ``:1368``) that a
+replay of the same steps needs: each chunk's request, slot, offset and
+length, and each decode step's requests, slots and positions. A decode
+step runs over the decoding slots only; the reference decodes its whole
+slot pool, idle rows included, which for a MoE model lets an idle row
+take an active row's expert capacity (``ROADMAP.md``, reference caveats).
+
 A model whose KV block holds no bytes (``kv_block_bytes`` 0: a Mamba
 model) has no pages to give: its cache is each slot's recurrent state
 (``models/cache.py``), so admission needs only a free slot
@@ -143,6 +154,9 @@ class ServeEngine:
         self.results: dict[int, Result] = {}
         self.stats = {"prefills": 0, "prefill_chunks": 0, "decode_steps": 0,
                       "rejected": 0}
+        #: the steps taken, in order: ``("prefill_chunk", uid, slot, off,
+        #: n)`` and ``("decode", uids, slots, positions)``
+        self.steps: list[tuple] = []
 
     @property
     def param_bytes(self) -> int:
@@ -234,8 +248,10 @@ class ServeEngine:
             tokens = torch.as_tensor(np.asarray(req.prompt[off:off + t]),
                                      dtype=torch.long, device=self.device)
             logits = extend_step(self.params, self.cfg, self.cache,
-                                 tokens[None], off, slot, self._tables)
+                                 tokens[None], off, slot, self._tables,
+                                 padded_len=self.prefill_chunk)
             self.stats["prefill_chunks"] += 1
+            self.steps.append(("prefill_chunk", req.uid, slot, off, t))
             self.slot_pos[slot] = off + t
             if off + t == len(req.prompt):
                 first = int(logits[0, 0].argmax())
@@ -256,6 +272,9 @@ class ServeEngine:
                              self._tables[idx], slots=idx)
         ids = logits[:, 0].argmax(-1).cpu().tolist()
         self.stats["decode_steps"] += 1
+        self.steps.append(("decode",
+                           [self._slot_req[s].uid for s in slots],
+                           slots.tolist(), self.slot_pos[slots].tolist()))
         self.slot_pos[slots] += 1
         for s, tok in zip(slots, ids):
             self.results[self._slot_req[s].uid].decode_steps += 1

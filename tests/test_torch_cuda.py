@@ -12,7 +12,8 @@ quantized kernels are held to their plain versions on the same codes and
 scales: ``gemm_wq`` rounds each dequantized weight to bf16 once, as a bf16
 weight is rounded, which stays inside the same tolerance. ``lru_scan`` is
 float32 and is held at atol/rtol 1e-5: it does the plain version's rounded
-multiply and add per step, in the same order.
+multiply and add per step, in the same order. ``packed_gather_rows`` copies
+rows and is held bit for bit (``torch.equal``).
 """
 from __future__ import annotations
 
@@ -25,6 +26,7 @@ from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import gemm as tgemm
 from repro_torch.kernels import gemm_wq as twq
 from repro_torch.kernels import lru_scan as tlru
+from repro_torch.kernels import packed_gather as tpg
 from repro_torch.kernels import paged_attention as tpa
 from repro_torch.kernels import ref
 from repro_torch.quant import quantize_kv, quantize_weight
@@ -155,3 +157,30 @@ def test_cuda_lru_scan_matches_plain(cuda, B, L, D):
     b = torch.randn((B, L, D), generator=g, device=cuda)
     torch.testing.assert_close(tlru.lru_scan_cuda(a, b),
                                ref.lru_scan_ref(a, b), atol=1e-5, rtol=1e-5)
+
+
+# --------------------------------------------------------------------------
+# packed_gather_rows: qwen2-moe-a2.7b's decode (T = 4 rows, M = 16) and
+# prefill chunk (T = 64, M = 256) token streams, a ragged float32 shape with
+# unsorted int64 indices, narrow and odd rows, clamped indices, and a table
+# view whose base is not 16-byte aligned
+# --------------------------------------------------------------------------
+@pytest.mark.gpu
+@pytest.mark.parametrize("N,D,M,dtype,idx_dtype", [
+    (4, 2048, 16, torch.bfloat16, torch.int64),
+    (64, 2048, 256, torch.bfloat16, torch.int32),
+    (1000, 100, 37, torch.float32, torch.int64),
+    (50, 3, 1001, torch.float16, torch.int32)])
+def test_cuda_packed_gather_matches_plain(cuda, N, D, M, dtype, idx_dtype):
+    g = torch.Generator(device=cuda).manual_seed(6)
+    table = torch.randn((N, D), generator=g, device=cuda).to(dtype)
+    idx = torch.randint(-N - 3, N + 3, (M,), generator=g, device=cuda)
+    idx = idx.to(idx_dtype)
+    assert torch.equal(tpg.packed_gather_rows_cuda(table, idx),
+                       ref.gather_rows_ref(table, idx))
+    # a view one row in: its base address is D * elt bytes past the
+    # allocation's, so the copy unit narrows where D * elt is not a
+    # multiple of 16
+    view = torch.randn((N + 1, D), generator=g, device=cuda).to(dtype)[1:]
+    assert torch.equal(tpg.packed_gather_rows_cuda(view, idx),
+                       ref.gather_rows_ref(view, idx))

@@ -107,7 +107,10 @@ def model():
                                       quant_block=32),
                                   lambda m: m.get_arch("falcon-mamba-7b"),
                                   lambda m: m.reduced(m.get_arch(
-                                      "falcon-mamba-7b"))])
+                                      "falcon-mamba-7b")),
+                                  lambda m: m.get_arch("qwen2-moe-a2.7b"),
+                                  lambda m: m.reduced(m.get_arch(
+                                      "qwen2-moe-a2.7b"))])
 def test_config_copy_matches_reference(make):
     import repro.configs as jc
     import repro_torch.configs as tc
@@ -117,11 +120,13 @@ def test_config_copy_matches_reference(make):
         if f.name == "pattern":   # two LayerSpec classes with equal fields
             mine, ref = ([dataclasses.astuple(s) for s in x]
                          for x in (mine, ref))
-        if f.name == "ssm":       # two SSMConfig classes with equal fields
+        if f.name in ("ssm", "moe"):   # two classes each, equal fields
             mine, ref = (x if x is None else dataclasses.astuple(x)
                          for x in (mine, ref))
         assert mine == ref, f.name
     assert cfg.resolved_head_dim == jcfg.resolved_head_dim
+    if cfg.moe is not None:
+        assert cfg.moe.shared_hidden == jcfg.moe.shared_hidden
 
 
 @pytest.mark.parametrize("bad", [dict(weight_dtype="int2"),
